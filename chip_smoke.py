@@ -22,7 +22,19 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
 6. kernel time at each decode shape beside its HBM bound, the plain
    version and a one-call PyTorch yardstick;
 7. (opt-in, ``--phases 7``) a ``torch.profiler`` breakdown of one
-   decode step in each mode: device busy share and the top kernels.
+   decode step in each mode: device busy share and the top kernels;
+8. collective library — ``repro_torch.kernels.ops`` and its four
+   kernels (1PA AllReduce LL/HB, all-pairs ReduceScatter and AllGather,
+   ring AllGather): each op × algo × protocol bit-equal to its plain
+   version over n in {2, 4, 8} × f32/bf16/int32 × the reference tests'
+   shapes and an odd bf16 count, and at qwen3-1.7b's TP=4 serving sizes;
+   the LL flag test (chained calls and a repeated ``step`` on one
+   workspace); the main path — the collectives of serving qwen3-1.7b at
+   TP=4 (a 57-AllReduce prefill of 8 × 16 tokens through 2PA, then
+   decode steps of 57 1PA AllReduces and one ring logits AllGather),
+   with every kernel's launches counted; and each kernel's device time
+   at the serving sizes and over a per-rank size sweep at n=4, beside
+   its HBM bound, its plain version and a one-call PyTorch yardstick.
 
 The last lines are the card's nvidia-smi line, one ``{"kernels": [...]}``
 JSON object, and ``{"ok": true, "device": {...}}``. The whole record
@@ -54,6 +66,36 @@ MAX_KV = 1024
 BF16_REL_TOL = 0.05                # ||explicit - auto|| / ||auto||
 KERNEL_SOURCE = "src/repro_torch/csrc/executor.cu"
 REPLACES = "src/repro/core/executor.py:702"
+# phase 8: the collective library's kernels -> (source, TPU kernel body)
+COLLECTIVES = {
+    "all_reduce_1pa": ("src/repro_torch/csrc/allreduce_1pa.cu",
+                       "src/repro/kernels/allreduce_1pa.py:35"),
+    "reduce_scatter_2pa": ("src/repro_torch/csrc/allpairs_2pa.cu",
+                           "src/repro/kernels/reducescatter_2pa.py:33"),
+    "all_gather_2pa": ("src/repro_torch/csrc/allpairs_2pa.cu",
+                       "src/repro/kernels/reducescatter_2pa.py:65"),
+    "all_gather_ring": ("src/repro_torch/csrc/allgather_ring.cu",
+                        "src/repro/kernels/allgather_ring.py:27"),
+}
+# (op, kwargs, kernels it launches, whether a rank's input holds one
+# chunk per rank: n times the chunk's rows)
+COLLECTIVE_OPS = (
+    ("all_reduce", dict(algo="1pa"), ("all_reduce_1pa",), False),
+    ("all_reduce", dict(algo="1pa", use_ll=False), ("all_reduce_1pa",),
+     False),
+    ("all_reduce", dict(algo="2pa"), ("reduce_scatter_2pa",
+                                      "all_gather_2pa"), True),
+    ("reduce_scatter", {}, ("reduce_scatter_2pa",), True),
+    ("all_gather", dict(algo="ring"), ("all_gather_ring",), False),
+    ("all_gather", dict(algo="allpairs"), ("all_gather_2pa",), False),
+)
+# tests/test_kernels_collectives.py's shapes and an odd bf16 count
+GRID_SHAPES = ((8, 128), (16, 256), (8, 384), (3, 129))
+MAIN_DECODE_STEPS = 4
+# per-rank input sizes of the timing sweep at n=4, bf16 (rows, cols); 1PA
+# stops at 1 MiB, only the AllGathers go to 64 MiB
+SWEEP = {"1KiB": (4, 128), "32KiB": (8, 2048), "1MiB": (256, 2048),
+         "16MiB": (4096, 2048), "64MiB": (16384, 2048)}
 
 RECORD: dict = {}
 
@@ -95,7 +137,7 @@ def device_ms(fn, iters: int) -> tuple[float, bool]:
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     s0.record()
-    torch.cuda._sleep(int(host_s * 1.5 * 2.0e9) + 1_000_000)
+    torch.cuda._sleep(int(host_s * 3.0 * 2.0e9) + 2_000_000)
     e0.record()
     t = time.perf_counter()
     for _ in range(iters):
@@ -128,6 +170,9 @@ def phase_build():
     t = time.perf_counter()
     libs = build.build_all()
     build.executor_library()
+    build.allreduce_1pa_library()
+    build.allpairs_2pa_library()
+    build.allgather_ring_library()
     ptxas = [ln.strip() for b in build.last_build.values()
              for ln in b["log"].splitlines() if "registers" in ln]
     emit("build", seconds=round(time.perf_counter() - t, 3),
@@ -388,11 +433,224 @@ def phase_profile(device):
          **out)
 
 
+def _rand(shape, dtype, gen, device):
+    if dtype == torch.int32:
+        return torch.randint(-100, 100, shape, generator=gen, device=device,
+                             dtype=torch.int32)
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def _serving_sizes():
+    """qwen3-1.7b at TP=4, batch 8: (label, per-rank input, dtype) of the
+    decode and prefill (8 x 16 tokens) AllReduces and the logits shard."""
+    from repro_torch import configs
+    cfg = configs.get_config(ARCH)
+    return dict(decode=((BATCH, cfg.d_model), torch.bfloat16),
+                prefill=((BATCH * PROMPT, cfg.d_model), torch.bfloat16),
+                logits=((BATCH, cfg.vocab // TP), torch.float32))
+
+
+def _collectives_vs_plain(device, gen):
+    """Every op x algo x protocol against its plain version, bit-equal."""
+    from repro_torch.kernels import ops
+    errs = {k: 0.0 for k in COLLECTIVES}
+    cases = 0
+
+    def held(op, kw, kernels, x, what):
+        nonlocal cases
+        got = getattr(ops, op)(x, **kw)
+        want = getattr(ops, op)(x, backend="torch", **kw)
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item()
+        for k in kernels:
+            errs[k] = max(errs[k], err)
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"kernel != plain: {op} {kw} {what} (max |err| {err})")
+        cases += 1
+
+    for n in (2, 4, 8):
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            for rows, cols in GRID_SHAPES:
+                for op, kw, kernels, per_chunk in COLLECTIVE_OPS:
+                    x = _rand((n, rows * (n if per_chunk else 1), cols),
+                              dtype, gen, device)
+                    held(op, kw, kernels, x, f"n={n} {dtype} {tuple(x.shape)}")
+    sizes = _serving_sizes()
+    for op, kw, kernels, _ in COLLECTIVE_OPS:
+        labels = ("logits",) if op == "all_gather" else ("decode", "prefill")
+        for label in labels:
+            shape, dtype = sizes[label]
+            x = _rand((TP,) + shape, dtype, gen, device)
+            held(op, kw, kernels, x, f"{label} {dtype} {tuple(x.shape)}")
+
+    # LL flag test: calls chained on one workspace, then fresh data with
+    # the same step (the card's test_all_reduce_1pa_distinct_steps)
+    shape, dtype = sizes["decode"]
+    for use_ll in (True, False):
+        x = _rand((TP,) + shape, dtype, gen, device)
+        for step, fresh in ((0, False), (1, False), (1, True)):
+            if fresh:
+                x = _rand((TP,) + shape, dtype, gen, device)
+            y = ops.all_reduce(x, algo="1pa", use_ll=use_ll, step=step)
+            want = ops.all_reduce(x, algo="1pa", use_ll=use_ll, step=step,
+                                  backend="torch")
+            torch.cuda.synchronize()
+            check(torch.equal(y, want), f"1PA use_ll={use_ll} step={step} "
+                  f"fresh={fresh}: kernel != plain on a reused workspace")
+            cases += 1
+            x = y
+    return cases, errs
+
+
+def _collectives_main_path(device, gen):
+    """The collectives of serving qwen3-1.7b at TP=4 through ``ops``, with
+    the kernels' launch counts set to 0 just before and read just after;
+    every output is then checked bit-equal to the plain version."""
+    from repro_torch import configs
+    from repro_torch.kernels import comm_utils, ops
+    n_ar = 2 * configs.get_config(ARCH).n_layers + 1   # per forward step
+    sizes = _serving_sizes()
+    pools = {k: [_rand((TP,) + shape, dtype, gen, device) for _ in range(2)]
+             for k, (shape, dtype) in sizes.items()}
+    calls = (("prefill", "all_reduce", {}),
+             ("decode", "all_reduce", dict(algo="1pa")),
+             ("logits", "all_gather", {}))
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def drive():
+        outs = []
+        events[0].record()
+        for i in range(n_ar):                   # prefill of 8 x 16 tokens
+            outs.append((0, i % 2, ops.all_reduce(pools["prefill"][i % 2])))
+        events[1].record()
+        for _ in range(MAIN_DECODE_STEPS):
+            for i in range(n_ar):
+                outs.append((1, i % 2, ops.all_reduce(pools["decode"][i % 2],
+                                                      algo="1pa")))
+            outs.append((2, 0, ops.all_gather(pools["logits"][0])))
+        events[2].record()
+        torch.cuda.synchronize()
+        return outs
+
+    drive()           # warm-up: the allocator's blocks for the outputs
+    comm_utils.LAUNCHES.clear()                 # just before the main path
+    outs = drive()
+    launches = dict(comm_utils.LAUNCHES)        # read just after
+    e0, e1, e2 = events
+    want = {(c, j): getattr(ops, calls[c][1])(pools[calls[c][0]][j],
+                                              backend="torch", **calls[c][2])
+            for c in range(3) for j in range(2)}
+    for c, j, got in outs:
+        check(bool(torch.isfinite(got.float()).all())
+              and torch.equal(got, want[(c, j)]),
+              f"main path: {calls[c][1]} {calls[c][2]} output != plain")
+    expect = {"all_reduce_1pa": n_ar * MAIN_DECODE_STEPS,
+              "reduce_scatter_2pa": n_ar, "all_gather_2pa": n_ar,
+              "all_gather_ring": MAIN_DECODE_STEPS}
+    check(launches == expect, f"main-path launches {launches} != {expect}")
+    return dict(launches=launches, allreduces_per_step=n_ar,
+                decode_steps=MAIN_DECODE_STEPS,
+                prefill_ms=e0.elapsed_time(e1),
+                decode_ms_per_step=e1.elapsed_time(e2) / MAIN_DECODE_STEPS,
+                outputs_checked=len(outs))
+
+
+def _collectives_time(device, gen):
+    """Device time of each kernel at the serving sizes and over a per-rank
+    size sweep at n=4 (bf16), beside the HBM bound (each rank's input
+    read once, each output written once, over all ranks), the plain
+    version and a one-call PyTorch yardstick the port never calls."""
+    from repro_torch.kernels import comm_utils, ops
+    n = TP
+    sizes = _serving_sizes()
+    d = sizes["decode"][0][1]
+    # kernel -> (op, kwargs, [(label, per-rank input, dtype)])
+    plan = {
+        "all_reduce_1pa": [
+            ("all_reduce", dict(algo="1pa", use_ll=ll),
+             [("decode",) + sizes["decode"], ("prefill",) + sizes["prefill"]]
+             + [(k, v, torch.bfloat16) for k, v in SWEEP.items()
+                if k in ("1KiB", "32KiB", "1MiB")])
+            for ll in (True, False)],
+        "reduce_scatter_2pa": [
+            ("reduce_scatter", {},
+             [("decode",) + sizes["decode"], ("prefill",) + sizes["prefill"]]
+             + [(k, v, torch.bfloat16) for k, v in SWEEP.items()
+                if k != "64MiB"])],
+        "all_gather_2pa": [
+            ("all_gather", dict(algo="allpairs"),
+             [("decode_2pa_half", (BATCH // n, d), torch.bfloat16),
+              ("prefill_2pa_half", (BATCH * PROMPT // n, d), torch.bfloat16),
+              ("logits",) + sizes["logits"]]
+             + [(k, v, torch.bfloat16) for k, v in SWEEP.items()])],
+        "all_gather_ring": [
+            ("all_gather", dict(algo="ring"),
+             [("logits",) + sizes["logits"]]
+             + [(k, v, torch.bfloat16) for k, v in SWEEP.items()])],
+    }
+    rows_out = {}
+    for kernel, variants in plan.items():
+        rows_out[kernel] = []
+        for op, kw, shapes in variants:
+            for label, shape, dtype in shapes:
+                x = _rand((n,) + tuple(shape), dtype, gen, device)
+                fn = getattr(ops, op)
+
+                def kern(x=x, fn=fn, kw=kw):
+                    return fn(x, **kw)
+
+                def plain(x=x, fn=fn, kw=kw):
+                    return fn(x, backend="torch", **kw)
+
+                out = kern()
+                rows, cols = x.shape[1], x.shape[2]
+                if op == "all_reduce":
+                    def lib(x=x):
+                        return x.sum(0, keepdim=True).expand_as(x).contiguous()
+                elif op == "reduce_scatter":
+                    def lib(x=x, rows=rows, cols=cols):
+                        return x.view(n, n, rows // n, cols).sum(0)
+                else:
+                    def lib(x=x, rows=rows, cols=cols):
+                        return x.reshape(1, -1, cols).expand(
+                            n, n * rows, cols).contiguous()
+                nbytes = (x.numel() + out.numel()) * x.element_size()
+                del out
+                iters = max(3, min(200, int(4e9 // nbytes)))
+                k_ms, k_cov = device_ms(kern, iters)
+                p_ms, p_cov = device_ms(plain, max(3, iters // 4))
+                l_ms, l_cov = device_ms(lib, iters)
+                rows_out[kernel].append(dict(
+                    op=op, **kw, size=label, n=n, rows=rows, cols=cols,
+                    dtype=str(dtype).replace("torch.", ""),
+                    rank_bytes=x[0].numel() * x.element_size(),
+                    blocks_per_rank=comm_utils.workspace(
+                        f"{kernel}/{'ll' if kw.get('use_ll', True) else 'hb'}"
+                        if kernel == "all_reduce_1pa" else kernel, x).blocks,
+                    ms=k_ms, ms_wall=wall_ms(kern, iters), plain_ms=p_ms,
+                    library_ms=l_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                    bytes=nbytes, sleep_covered=dict(
+                        kernel=k_cov, plain=p_cov, library=l_cov)))
+                del x
+                torch.cuda.empty_cache()
+    return rows_out
+
+
+def phase_collectives(device, gen):
+    t = time.perf_counter()
+    cases, errs = _collectives_vs_plain(device, gen)
+    main = _collectives_main_path(device, gen)
+    timing = _collectives_time(device, gen)
+    emit("collectives", cases=cases, max_abs_err=errs, main_path=main,
+         shapes=timing, seconds=round(time.perf_counter() - t, 3))
+    return errs, main["launches"], timing
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
-                    help="comma-separated phases to run (default 1-6; "
-                         "7 profiles a decode step)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8",
+                    help="comma-separated phases to run (default 1-6 and "
+                         "8; 7 profiles a decode step)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -411,7 +669,7 @@ def main(argv=None) -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
-    max_err, launches, timing = None, None, None
+    max_err, launches, timing, coll = None, None, None, None
     if 2 in phases:
         phase_build()
     if 3 in phases:
@@ -424,6 +682,8 @@ def main(argv=None) -> int:
         timing = phase_kernel_time(device, gen)
     if 7 in phases:
         phase_profile(device)
+    if 8 in phases:
+        coll = phase_collectives(device, gen)
     kernels = []
     if timing is not None:
         # the main path's per-step launch mix at full occupancy: every
@@ -445,6 +705,25 @@ def main(argv=None) -> int:
             bound_ms=mean("bound_ms"), bound_by="bytes",
             library_ms=mean("library_ms"),
             per_shape=timing))
+    if coll is not None:
+        # the decode-size row of each kernel: the 1PA LL decode AllReduce,
+        # the two halves of the decode AllReduce through 2PA, and the
+        # logits gather through the ring
+        errs, coll_launches, coll_timing = coll
+        at = {"all_reduce_1pa": ("decode", True),
+              "reduce_scatter_2pa": ("decode", None),
+              "all_gather_2pa": ("decode_2pa_half", None),
+              "all_gather_ring": ("logits", None)}
+        for name, (source, replaces) in COLLECTIVES.items():
+            label, ll = at[name]
+            row = next(r for r in coll_timing[name]
+                       if r["size"] == label and r.get("use_ll") == ll)
+            kernels.append(dict(
+                name=name, route="cuda", source=source, replaces=replaces,
+                launches=coll_launches.get(name, 0), max_abs_err=errs[name],
+                ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by="bytes",
+                library_ms=row["library_ms"], per_shape=coll_timing[name]))
     RECORD["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

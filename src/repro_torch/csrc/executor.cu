@@ -37,7 +37,6 @@
 
 namespace msccl {
 
-constexpr int kMaxRanks = 8;      // MAX_RANKS in core/executor.py
 constexpr int kMaxBufs = 8;       // MAX_BUFFERS
 constexpr int kMaxOperands = 32;  // MAX_OPERANDS
 constexpr int kFields = 8;        // FIELDS
@@ -48,39 +47,6 @@ enum : int { OP_NOP = 0, OP_PUT = 1, OP_WAIT = 2, OP_COPY = 3, OP_REDUCE = 4,
 struct BufTable {
   void* p[kMaxBufs][kMaxRanks];  // [buffer id][rank] -> rank's base pointer
 };
-
-// dst = srcs[0] + srcs[1] + ... (left fold, rounded per add), elementwise.
-template <typename T>
-__device__ __forceinline__ void reduce(typename Elem<T>::B* dst,
-                                       const typename Elem<T>::B* const* srcs,
-                                       int k, long long count) {
-  using B = typename Elem<T>::B;
-  constexpr int V = 16 / sizeof(B);
-  bool aligned = (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
-  for (int j = 0; j < k; ++j) aligned &= (reinterpret_cast<uintptr_t>(srcs[j]) & 15) == 0;
-  long long done = 0;
-  if (aligned) {
-    const long long nv = count / V;
-    for (long long i = threadIdx.x; i < nv; i += blockDim.x) {
-      union { uint4 v; B e[V]; } acc, o;
-      acc.v = ld_cg(reinterpret_cast<const uint4*>(srcs[0]) + i);
-      for (int j = 1; j < k; ++j) {
-        o.v = ld_cg(reinterpret_cast<const uint4*>(srcs[j]) + i);
-#pragma unroll
-        for (int e = 0; e < V; ++e)
-          acc.e[e] = Elem<T>::from_f(Elem<T>::to_f(acc.e[e]) + Elem<T>::to_f(o.e[e]));
-      }
-      reinterpret_cast<uint4*>(dst)[i] = acc.v;
-    }
-    done = nv * V;
-  }
-  for (long long i = done + threadIdx.x; i < count; i += blockDim.x) {
-    B acc = ld_cg(srcs[0] + i);
-    for (int j = 1; j < k; ++j)
-      acc = Elem<T>::from_f(Elem<T>::to_f(acc) + Elem<T>::to_f(ld_cg(srcs[j] + i)));
-    dst[i] = acc;
-  }
-}
 
 template <typename B>
 __device__ __forceinline__ void zero(B* dst, long long count) {

@@ -21,7 +21,8 @@ import time
 from typing import Dict, List, Optional
 
 __all__ = ["CSRC", "build_dir", "nvcc", "build_all", "executor_library",
-           "last_build"]
+           "allreduce_1pa_library", "allpairs_2pa_library",
+           "allgather_ring_library", "last_build"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _REPO = pathlib.Path(__file__).resolve().parents[3]
@@ -31,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: what the most recent build did: {source: {"seconds", "log", "path"}}
 last_build: Dict[str, dict] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_BOUND: Dict[str, ctypes.CDLL] = {}      # libraries whose argtypes are set
 
 
 def build_dir() -> pathlib.Path:
@@ -120,3 +122,51 @@ def executor_library() -> ctypes.CDLL:
     lib.dsl_executor_error_string.restype = c.c_char_p
     lib.dsl_executor_error_string.argtypes = [c.c_int]
     return lib
+
+
+_P, _I, _LL, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_uint)
+
+
+def _collective_library(stem: str, launchers: Dict[str, list]) -> ctypes.CDLL:
+    """A collective kernel library, built at first use: each launcher
+    returns a cudaError_t, ``<stem>_error_string`` names it."""
+    lib = _BOUND.get(stem)
+    if lib is not None:
+        return lib
+    lib = _load(stem)
+    for name, argtypes in launchers.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    err = getattr(lib, f"{stem}_error_string")
+    err.restype = ctypes.c_char_p
+    err.argtypes = [ctypes.c_int]
+    _BOUND[stem] = lib
+    return lib
+
+
+def allreduce_1pa_library() -> ctypes.CDLL:
+    """``csrc/allreduce_1pa.cu``: ``allreduce_1pa_launch(x, out, slots,
+    flags, dtype, n, count, blocks, use_ll, epoch, threads, stream)``."""
+    return _collective_library("allreduce_1pa", {
+        "allreduce_1pa_launch": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _U,
+                                 _I, _P]})
+
+
+def allpairs_2pa_library() -> ctypes.CDLL:
+    """``csrc/allpairs_2pa.cu``: ``reduce_scatter_2pa_launch(x, out,
+    scratch, flags, dtype, n, count, blocks, epoch, threads, stream)`` and
+    ``all_gather_2pa_launch(x, out, flags, dtype, n, count, blocks, epoch,
+    threads, stream)``."""
+    return _collective_library("allpairs_2pa", {
+        "reduce_scatter_2pa_launch": [_P, _P, _P, _P, _I, _I, _LL, _I, _U,
+                                      _I, _P],
+        "all_gather_2pa_launch": [_P, _P, _P, _I, _I, _LL, _I, _U, _I, _P]})
+
+
+def allgather_ring_library() -> ctypes.CDLL:
+    """``csrc/allgather_ring.cu``: ``allgather_ring_launch(x, out, flags,
+    dtype, n, count, blocks, epoch, threads, stream)``."""
+    return _collective_library("allgather_ring", {
+        "allgather_ring_launch": [_P, _P, _P, _I, _I, _LL, _I, _U, _I, _P]})

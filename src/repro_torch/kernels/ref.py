@@ -4,6 +4,12 @@ All oracles take *global* tensors with the rank axis explicit as axis 0
 — ``x[d]`` is rank ``d``'s local buffer — the convention of
 ``repro/kernels/ref.py``, so they compare directly against a plan's
 ``(n, rows, cols)`` output.
+
+They sum in ``torch.sum``'s order, not in the kernels': the collective
+kernels and their plain versions fold rotated from each rank (rank
+``r`` adds ``x[r] + x[r+1] + ... + x[r-1]``, rounding after each add,
+as the reference's kernels do), so in bf16 an oracle agrees with them
+within rounding, not bit for bit.
 """
 from __future__ import annotations
 
