@@ -11,7 +11,8 @@
   Serializable with ``to_json`` / ``from_json``.
 * :class:`BucketedPlan` — one plan per row-count bucket, padded at
   dispatch (``"rows"`` for all_reduce/broadcast, ``"tiled"`` for
-  all_gather).
+  all_gather, ``"blocks"`` for all_to_all/reduce_scatter, whose buckets
+  count rows per per-rank block — the MoE capacity buckets).
 
 A plan takes and returns rank-stacked tensors: ``x`` is ``(n, rows,
 cols)`` and ``x[r]`` is rank ``r``'s payload.
@@ -58,10 +59,15 @@ _PADDABLE = frozenset({"all_reduce", "broadcast"})
 
 #: per-family padding for ``plan_for(..., buckets=)``: ``"rows"`` pads
 #: the payload tail and slices the output tail; ``"tiled"`` (all_gather)
-#: slices the padding out of every rank's block of the gathered output.
-#: The row-redistributing families (``"blocks"``) come with MoE.
+#: slices the padding out of every rank's block of the gathered output;
+#: ``"blocks"`` (the row-redistributing families, whose ``(n*rows, cols)``
+#: payload is n per-rank row blocks) counts buckets in rows per block and
+#: pads each block on its own, so the block boundaries the algorithm
+#: routes on stay aligned — all_to_all slices the padding out of every
+#: received block, reduce_scatter off its reduced block's tail.
 _BUCKET_PAD = {"all_reduce": "rows", "broadcast": "rows",
-               "all_gather": "tiled"}
+               "all_gather": "tiled", "all_to_all": "blocks",
+               "reduce_scatter": "blocks"}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -259,12 +265,16 @@ class BucketedPlan:
         for b in self.buckets:
             if rows <= b:
                 return b
+        unit = ("rows per per-rank block" if self.pad_strategy == "blocks"
+                else "rows")
         raise ValueError(
-            f"{self.collective} payload of {rows} rows exceeds the largest "
+            f"{self.collective} payload of {rows} {unit} exceeds the largest "
             f"bucket of {self!r}; recompile with plan_for(..., buckets=(*"
             f"{list(self.buckets)}, {rows}))")
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pad_strategy == "blocks":
+            return self._call_blocks(x)
         rows = int(x.shape[1])
         b = self.bucket_for(rows)
         self.hits[b] += 1
@@ -277,6 +287,30 @@ class BucketedPlan:
             return out.reshape(self.n, self.n, b, -1)[:, :, :rows].reshape(
                 self.n, self.n * rows, out.shape[-1])
         return out[:, :rows]
+
+    def _call_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` is ``(n, n*rows, cols)``: every rank's payload is n
+        per-rank blocks of ``rows``. Each block pads to the bucket, the
+        bucket's plan replays, and the padding is sliced back out."""
+        n, total, cols = x.shape
+        if total % self.n:
+            raise ValueError(
+                f"{self.collective} payload rows={total} not divisible by "
+                f"the {self.n} per-rank blocks of {self!r}")
+        rows = total // self.n
+        b = self.bucket_for(rows)
+        self.hits[b] += 1
+        plan = self.plans[b]
+        if rows == b:
+            return plan(x)
+        xp = F.pad(x.reshape(n, self.n, rows, cols), (0, 0, 0, b - rows))
+        out = plan(xp.reshape(n, self.n * b, cols))
+        if self.collective == "reduce_scatter":
+            # (n, b, cols) reduced blocks: padded rows summed zeros
+            return out[:, :rows]
+        # all_to_all: slice the padding out of every received block
+        return out.reshape(n, self.n, b, cols)[:, :, :rows].reshape(
+            n, self.n * rows, cols)
 
     def cost_cards(self) -> Dict[int, dict]:
         return {b: self.plans[b].cost_card() for b in self.buckets}
@@ -310,10 +344,10 @@ class BucketedPlan:
         if d.get("kind") != "bucketed_plan":
             raise ValueError(f"not a bucketed plan payload "
                              f"(kind={d.get('kind')!r})")
-        if d.get("pad_strategy") not in ("rows", "tiled"):
-            raise NotImplementedError(
-                f"pad_strategy {d.get('pad_strategy')!r} is not ported "
-                f"yet; this slice covers 'rows' and 'tiled'")
+        if d.get("pad_strategy") not in ("rows", "tiled", "blocks"):
+            raise ValueError(f"unknown pad_strategy "
+                             f"{d.get('pad_strategy')!r}; expected 'rows', "
+                             f"'tiled' or 'blocks'")
         req = lambda k: _field(d, k, "BucketedPlan")  # noqa: E731
         buckets = tuple(int(b) for b in req("buckets"))
         payload = req("plans")
@@ -397,21 +431,31 @@ class Communicator:
                  opt_level: Optional[int] = None, root: int = 0,
                  link: Optional[sel.LinkModel] = None):
         """:meth:`compile`, or with ``buckets=(b1, b2, ...)`` one plan per
-        bucket row count behind a :class:`BucketedPlan` (itself cached)."""
+        bucket behind a :class:`BucketedPlan` (itself cached). Buckets
+        count payload rows, except for the ``"blocks"`` families
+        (all_to_all, reduce_scatter): there ``shape`` is the full
+        ``(n * rows, cols)`` payload and buckets count rows per per-rank
+        block (for MoE, the per-rank token capacity)."""
         kw = dict(algo=algo, backend=backend, opt_level=opt_level,
                   root=root, link=link)
         if buckets is None:
             return self.compile(collective, shape, dtype, **kw)
         strategy = _BUCKET_PAD.get(collective)
         if strategy is None:
-            raise NotImplementedError(
-                f"bucketed {collective!r} pads per-rank blocks ('blocks'), "
-                f"which comes with MoE; this slice buckets "
-                f"{sorted(_BUCKET_PAD)}")
+            raise ValueError(f"unknown collective {collective!r}: bucketed "
+                             f"compilation pads per family — "
+                             f"{sorted(_BUCKET_PAD.items())}")
         rows, cols = int(shape[0]), int(shape[1])
         bs = tuple(sorted({int(b) for b in buckets}))
         if not bs or bs[0] <= 0:
             raise ValueError(f"buckets must be positive row counts: {buckets}")
+        if strategy == "blocks":
+            if rows % self.n:
+                raise ValueError(
+                    f"{collective} rows={rows} not divisible into the "
+                    f"{self.n} per-rank blocks its 'blocks' padding "
+                    f"strategy buckets over")
+            rows //= self.n
         if rows > bs[-1]:
             raise ValueError(f"shape rows={rows} exceed the largest bucket "
                              f"{bs[-1]}")
@@ -423,7 +467,8 @@ class Communicator:
         if cached is not None:
             self.stats["hits"] += 1
             return cached
-        plans = {b: self.compile(collective, (b, cols), dtype, **kw)
+        per = self.n if strategy == "blocks" else 1
+        plans = {b: self.compile(collective, (per * b, cols), dtype, **kw)
                  for b in bs}
         bucketed = BucketedPlan(
             collective=collective, axis=self.axis, n=self.n, cols=cols,
@@ -505,6 +550,18 @@ class Communicator:
             root=root if collective == "broadcast" else None, pad=pad,
             link=link, estimate_us=est, comm_stats=stats, program=prog,
             executor=executor, device=self.device)
+
+    def all_to_all(self, x: torch.Tensor, *, backend: Optional[str] = None,
+                   algo: Optional[str] = None,
+                   link: Optional[sel.LinkModel] = None,
+                   opt_level: Optional[int] = None) -> torch.Tensor:
+        """x: ``(n, n*rows, cols)``, row block ``b`` of rank ``d`` goes
+        to rank ``b``; returns every rank's received blocks stacked.
+        Compiles the plan for this shape at the first call, hits the
+        cache after."""
+        return self.compile("all_to_all", tuple(x.shape[1:]), x.dtype,
+                            algo=algo, backend=backend, opt_level=opt_level,
+                            link=link)(x)
 
     def _resolve_algo(self, collective, nbytes, algo, link, opt_level):
         cands = sel.CANDIDATES[collective]

@@ -3,8 +3,9 @@ token hot path) — port of ``repro.distributed.step``'s serving half.
 
 * :func:`compile_decode_plans` compiles, once, the per-layer hidden
   AllReduce (``layer_allreduce``, also the vocab-sharded embedding's
-  gather-reduce) and the vocab-sharded ``logits_allgather``, bucketed
-  over active-slot counts;
+  gather-reduce), the vocab-sharded ``logits_allgather``, bucketed over
+  active-slot counts, and for MoE the expert-parallel ``moe_alltoall``,
+  bucketed over per-rank token capacities;
 * :class:`TPDecodeComms` replays them inside ``decode_step(comms=)``;
 * :func:`make_serve_step` builds the one-token step in ``auto`` mode
   (the unsharded model on one device) or ``explicit`` mode (rank-stacked
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.core import comm as comm_lib
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.moe_parallel import ep_capacity, moe_layer_ep
 from repro_torch.mesh import RankAxis
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
@@ -41,12 +43,15 @@ def compile_decode_plans(cfg: ModelConfig, comm, *, batch_local: int,
                          tp: int, buckets=None) -> dict:
     """The decode-step collective plans, compiled once and replayed every
     generated token: ``layer_allreduce`` over ``(rows, d_model)`` in the
-    model dtype and, when the vocab divides the TP axis,
-    ``logits_allgather`` over ``(rows, vocab/tp)`` in float32."""
-    if cfg.family != "dense":
+    model dtype; when the vocab divides the TP axis, ``logits_allgather``
+    over ``(rows, vocab/tp)`` in float32; and for the MoE family with
+    experts divisible by the axis, ``moe_alltoall`` — the dispatch and
+    combine all_to_all over ``(tp * rows, d_model)``, bucketed over the
+    rows per per-rank block ``e_local * ep_capacity(b)`` of each slot
+    bucket ``b`` (lossless capacity, so nothing drops)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"decode plans for family {cfg.family!r} (moe_alltoall) are "
-            f"not ported yet")
+            f"decode plans for family {cfg.family!r} are not ported yet")
     buckets = tuple(buckets) if buckets else slot_buckets(batch_local)
     plans = {"layer_allreduce": comm.plan_for(
         "all_reduce", (batch_local, cfg.d_model), cfg.dtype,
@@ -55,6 +60,13 @@ def compile_decode_plans(cfg: ModelConfig, comm, *, batch_local: int,
         plans["logits_allgather"] = comm.plan_for(
             "all_gather", (batch_local, cfg.vocab // tp), "float32",
             buckets=buckets)
+    if cfg.family == "moe" and cfg.moe.num_experts % tp == 0:
+        e_local = cfg.moe.num_experts // tp
+        caps = tuple(sorted({e_local * ep_capacity(b, cfg.moe.top_k)
+                             for b in buckets}))
+        plans["moe_alltoall"] = comm.plan_for(
+            "all_to_all", (tp * caps[-1], cfg.d_model), cfg.dtype,
+            buckets=caps)
     return plans
 
 
@@ -62,21 +74,32 @@ class TPDecodeComms:
     """The per-layer TP communication hook that the explicit step hands
     to ``transformer.decode_step``. Every method is pure plan replay on
     rank-stacked tensors: the plans were compiled before the first
-    token."""
+    token. For the MoE family the same axis doubles as the
+    expert-parallel axis: ``moe_plan`` is the capacity-bucketed
+    dispatch/combine all_to_all and :meth:`moe` runs the sparse layer
+    through it."""
 
     def __init__(self, cfg: ModelConfig, axis: RankAxis, *, hidden_plan,
-                 logits_plan=None):
+                 logits_plan=None, moe_plan=None):
         self.cfg = cfg
         self.axis = axis
         self.tp = axis.n
         self.hidden_plan = hidden_plan      # bucketed all_reduce (b, d_model)
         self.logits_plan = logits_plan      # bucketed all_gather or None
+        self.moe_plan = moe_plan            # bucketed EP all_to_all or None
         self.vocab_sharded = logits_plan is not None
         self._ranks = axis.index()
 
     def head_offset(self, nh_local: int) -> torch.Tensor:
         """(tp,) global index of every shard's first query head."""
         return self._ranks * nh_local
+
+    def moe(self, lp, x):
+        """Expert-parallel MoE layer on a rank-stacked (tp, b, s,
+        d_model) hidden state: dispatch and combine replay the
+        capacity-bucketed all_to_all plan, at lossless capacity, so no
+        token drops on the decode path."""
+        return moe_layer_ep(lp, x, self.cfg, plan=self.moe_plan)
 
     def hidden(self, x):
         """AllReduce a rank-stacked (tp, b, s, d_model) partial."""
@@ -137,7 +160,8 @@ def make_serve_step(cfg: ModelConfig, axis: RankAxis, *, batch: int,
     * ``auto`` — the unsharded model on ``axis.device``;
     * ``explicit`` — rank-stacked shards over ``axis`` (``axis.n`` TP
       ranks on one device); every per-layer AllReduce and the logits
-      AllGather replay the plans of ``plans`` (compiled here on ``comm``
+      AllGather (and, for MoE, each layer's dispatch and combine
+      all_to_all) replay the plans of ``plans`` (compiled here on ``comm``
       — by default a new :class:`~repro_torch.core.comm.Communicator`
       with the device's backend — when omitted).
     """
@@ -159,7 +183,8 @@ def make_serve_step(cfg: ModelConfig, axis: RankAxis, *, batch: int,
     if plans is None:
         plans = compile_decode_plans(cfg, comm, batch_local=batch, tp=axis.n)
     comms = TPDecodeComms(cfg, axis, hidden_plan=plans["layer_allreduce"],
-                          logits_plan=plans.get("logits_allgather"))
+                          logits_plan=plans.get("logits_allgather"),
+                          moe_plan=plans.get("moe_alltoall"))
 
     def step(params, cache, tokens, pos):
         return tf.decode_step(params, cfg, cache, tokens, pos, comms=comms)

@@ -22,7 +22,7 @@ from typing import Dict, List, Optional
 
 __all__ = ["CSRC", "build_dir", "nvcc", "build_all", "executor_library",
            "allreduce_1pa_library", "allpairs_2pa_library",
-           "allgather_ring_library", "last_build"]
+           "allgather_ring_library", "alltoall_library", "last_build"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _REPO = pathlib.Path(__file__).resolve().parents[3]
@@ -170,3 +170,10 @@ def allgather_ring_library() -> ctypes.CDLL:
     dtype, n, count, blocks, epoch, threads, stream)``."""
     return _collective_library("allgather_ring", {
         "allgather_ring_launch": [_P, _P, _P, _I, _I, _LL, _I, _U, _I, _P]})
+
+
+def alltoall_library() -> ctypes.CDLL:
+    """``csrc/alltoall.cu``: ``all_to_all_launch(x, out, flags, dtype, n,
+    count, blocks, epoch, threads, stream)``."""
+    return _collective_library("alltoall", {
+        "all_to_all_launch": [_P, _P, _P, _I, _I, _LL, _I, _U, _I, _P]})

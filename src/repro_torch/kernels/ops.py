@@ -5,6 +5,7 @@ behind the standard collective API (paper §4.4):
 
     from repro_torch.kernels import ops
     y = ops.all_reduce(x, algo="1pa")    # x: (n, rows, cols), rank-stacked
+    z = ops.all_to_all(x)                # MoE dispatch/combine
 
 A CUDA tensor runs the hand-written kernel, a CPU tensor its plain
 version; ``backend="torch"`` or ``"cuda"`` forces one (a CPU tensor never
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import alltoall
 from repro_torch.kernels.allgather_ring import all_gather_ring
 from repro_torch.kernels.allreduce_1pa import all_reduce_1pa
 from repro_torch.kernels.reducescatter_2pa import (all_gather_2pa,
@@ -57,7 +59,7 @@ def all_reduce(x: torch.Tensor, *, algo: str = "2pa", **kw) -> torch.Tensor:
 
 
 def all_to_all(x: torch.Tensor, **kw) -> torch.Tensor:
-    raise _not_ported("all_to_all", 7, "kernels/alltoall.py")
+    return alltoall.all_to_all(x, **kw)
 
 
 def fused_allgather_matmul(x: torch.Tensor, w: torch.Tensor,

@@ -1,6 +1,7 @@
 """Shared model blocks for decode: RMS norm, RoPE, GQA decode attention
-(whole-model and per-TP-shard), SwiGLU MLP and their initializers —
-the port of ``repro.models.blocks`` that dense decode runs.
+(whole-model and per-TP-shard), SwiGLU MLP, the dense-einsum MoE layer
+and their initializers — the port of ``repro.models.blocks`` that dense
+and MoE decode run.
 
 Every function takes plain tensors and accepts optional *leading rank
 dims*: the auto path calls them on one model (``x`` is ``(b, s, d)``),
@@ -24,8 +25,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["rms_norm", "rope", "apply_rope", "decode_attention",
-           "mlp_swiglu", "init_linear", "init_attn", "init_mlp",
-           "padded_heads"]
+           "mlp_swiglu", "top_k", "moe_layer", "init_linear", "init_attn",
+           "init_mlp", "init_moe", "padded_heads"]
 
 Params = dict
 _MASKED = torch.finfo(torch.float32).min
@@ -197,6 +198,41 @@ def mlp_swiglu(p: Params, x):
     return torch.einsum("...bsf,...fd->...bsd", act, p["w_down"])
 
 
+def top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the ``k`` largest values in
+    descending order and their indices, ties going to the lower index (a
+    stable descending sort; ``torch.topk`` makes no promise on ties, and
+    bf16 router logits cast to f32 tie often enough to flip a route)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_layer(p: Params, x, cfg):
+    """Top-k routed MoE, dense formulation: every expert runs on every
+    token and the combine weights zero the unrouted ones (the auto
+    path's oracle for ``distributed.moe_parallel.moe_layer_ep``).
+
+    x: (b, s, d); ``router`` (d, e), ``w_gate``/``w_up`` (e, d, f),
+    ``w_down`` (e, f, d). The expert products are batched matmuls over
+    the expert axis, so the (e, d, f) weights are read in place."""
+    b, s, d = x.shape
+    k = cfg.moe.top_k
+    router = torch.einsum("bsd,de->bse", x, p["router"]).float()
+    weights, idx = top_k(router, k)                          # (b, s, k)
+    weights = torch.softmax(weights, dim=-1).to(x.dtype)
+    # the indices of one token are distinct: scattering the weights is
+    # the reference's one-hot einsum, exactly
+    combine = torch.zeros(router.shape, dtype=x.dtype, device=x.device)
+    combine.scatter_(-1, idx, weights)                       # (b, s, e)
+    tokens = x.reshape(1, b * s, d)
+    gate = torch.matmul(tokens, p["w_gate"])                 # (e, T, f)
+    up = torch.matmul(tokens, p["w_up"])
+    act = F.silu(gate.float()).to(x.dtype) * up
+    out = torch.matmul(act, p["w_down"])                     # (e, T, d)
+    y = torch.einsum("etd,te->td", out, combine.reshape(b * s, -1))
+    return y.reshape(b, s, d)
+
+
 # ---------------------------------------------------------------------------
 # initializers (seeded torch generators; leaves may carry a leading
 # ``groups`` axis via ``lead``)
@@ -247,4 +283,21 @@ def init_mlp(gen, cfg, d_ff=None, *, lead=(), device=None) -> Params:
         "w_gate": init_linear(gen, (d, f), dt, **kw),
         "w_up": init_linear(gen, (d, f), dt, **kw),
         "w_down": init_linear(gen, (f, d), dt, scale=f ** -0.5, **kw),
+    }
+
+
+def init_moe(gen, cfg, *, lead=(), device=None) -> Params:
+    """The reference's MoE init, scales included: ``init_linear``'s
+    default scale is ``shape[0] ** -0.5``, the expert count for the
+    (e, d, f) leaves."""
+    d = cfg.d_model
+    e = cfg.moe.num_experts
+    f = cfg.moe.d_ff_expert or cfg.d_ff
+    dt = cfg.tdtype
+    kw = dict(lead=lead, device=device)
+    return {
+        "router": init_linear(gen, (d, e), dt, **kw),
+        "w_gate": init_linear(gen, (e, d, f), dt, **kw),
+        "w_up": init_linear(gen, (e, d, f), dt, **kw),
+        "w_down": init_linear(gen, (e, f, d), dt, scale=f ** -0.5, **kw),
     }

@@ -1,15 +1,16 @@
-"""The LM's decode path for the dense family (port of
+"""The LM's decode path for the dense and MoE families (port of
 ``repro.models.transformer``): seeded init, decode cache, one-token
 decode step — unsharded (auto) or on rank-stacked TP shards with the
-per-layer collectives replayed through compiled plans (explicit).
+per-layer collectives replayed through compiled plans (explicit; for
+MoE the same axis carries expert parallelism).
 
 Parameter layout is the reference's: ``params["layers"]`` is a list
 (length = period) of per-slot layer dicts whose leaves carry a leading
 ``groups`` axis, so weights carry across one to one. The explicit
 layout (``distributed.sharding.explicit_decode_params``) puts a rank
 axis in front of every leaf: ``wq`` ``(groups, d, nh, hd)`` becomes
-``(tp, groups, d, nh/tp, hd)``. Other families raise
-``NotImplementedError`` in this slice.
+``(tp, groups, d, nh/tp, hd)``. The other families (hybrid, rwkv6,
+encoder) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from repro_torch.models.config import ModelConfig
 __all__ = ["init_params", "init_cache", "decode_step", "logits_fn",
            "layer_windows", "n_groups"]
 
-FAMILIES = ("dense",)
+FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -65,12 +66,16 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     lead = (groups,)
     slots = []
     for _ in layer_windows(cfg):
-        slots.append({
+        slot = {
             "ln_attn": torch.zeros(lead + (d,), dtype=dt, device=device),
             "ln_mlp": torch.zeros(lead + (d,), dtype=dt, device=device),
             "attn": blocks.init_attn(gen, cfg, lead=lead, device=device),
-            "mlp": blocks.init_mlp(gen, cfg, lead=lead, device=device),
-        })
+        }
+        if cfg.family == "moe":
+            slot["moe"] = blocks.init_moe(gen, cfg, lead=lead, device=device)
+        else:
+            slot["mlp"] = blocks.init_mlp(gen, cfg, lead=lead, device=device)
+        slots.append(slot)
     params = {
         "embed": blocks.init_linear(gen, (cfg.vocab, d), dt, scale=1.0,
                                     device=device),
@@ -129,10 +134,20 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, comms=None):
     ``comms.hidden`` (a replay of the compiled AllReduce plan), the
     vocab-sharded embedding lookup and the logits go through
     ``comms.embed`` / ``comms.logits``, and attention receives every
-    shard's global head offset. ``comms=None`` is the auto path.
+    shard's global head offset. A MoE layer runs ``comms.moe`` —
+    expert-parallel dispatch and combine through the compiled
+    capacity-bucketed all_to_all plan, whose output is complete on
+    every rank, so no AllReduce follows it — where the auto path runs
+    the dense oracle ``blocks.moe_layer``. ``comms=None`` is the auto
+    path.
     """
     _check_family(cfg)
     ranked = comms is not None
+    if ranked and cfg.family == "moe" and comms.moe_plan is None:
+        raise NotImplementedError(
+            "explicit MoE decode needs a compiled 'moe_alltoall' plan "
+            "(experts divisible by the TP axis); without one the family "
+            "stays on auto")
     if ranked:
         x = comms.embed(params["embed"], tokens)[..., None, :]
     else:
@@ -152,9 +167,13 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, comms=None):
                 att = comms.hidden(att)     # complete the out-proj partial
             x = x + att
             h = rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-            mlp_out = blocks.mlp_swiglu(lp["mlp"], h)
-            if ranked:
-                mlp_out = comms.hidden(mlp_out)   # down-proj partial
+            if cfg.family == "moe":
+                mlp_out = (comms.moe(lp["moe"], h) if ranked
+                           else blocks.moe_layer(lp["moe"], h, cfg))
+            else:
+                mlp_out = blocks.mlp_swiglu(lp["mlp"], h)
+                if ranked:
+                    mlp_out = comms.hidden(mlp_out)   # down-proj partial
             x = x + mlp_out
     h = rms_norm(x, params["ln_f"], cfg.norm_eps)
     if ranked:

@@ -6,7 +6,8 @@ TP axis and compiles the decode-step collective plans at ``__init__``
 (:func:`~repro_torch.distributed.step.compile_decode_plans`), bucketed
 over active-slot counts. With ``mode="explicit"`` every generated token
 replays those plans — on the card through the hand-written DSL-executor
-kernel — and the compile counters stay flat across decode calls;
+kernel, for MoE each layer's dispatch and combine all_to_all too — and
+the compile counters stay flat across decode calls;
 ``mode="auto"`` runs the unsharded model and keeps the plans as the
 cost/inspection artifact.
 
@@ -59,6 +60,10 @@ def _check_plan_set(cfg: ModelConfig, plans: dict, *, tp: int,
     if cfg.vocab % tp == 0 and "logits_allgather" not in plans:
         raise ValueError("plan set missing 'logits_allgather' for the "
                          "vocab-sharded logits path")
+    if (cfg.family == "moe" and cfg.moe.num_experts % tp == 0
+            and "moe_alltoall" not in plans):
+        raise ValueError("plan set missing 'moe_alltoall' for the MoE "
+                         "expert-parallel path")
 
 
 @dataclasses.dataclass
@@ -121,8 +126,10 @@ class Engine:
     def plan_report(self) -> dict:
         """Per-bucket cost cards + dispatch hit counts of the decode
         plans, and the predicted per-token communication time at full
-        occupancy: 2 AllReduces per dense layer, the embedding
-        gather-reduce and the logits gather."""
+        occupancy: per layer 2 AllReduces (dense: attention out-proj and
+        MLP down-proj) or 1 AllReduce and 2 all_to_alls (MoE: out-proj,
+        dispatch and combine), the embedding gather-reduce and the
+        logits gather."""
         def top_plan(p):
             return p.plans[p.buckets[-1]] if isinstance(
                 p, comm_lib.BucketedPlan) else p
@@ -133,12 +140,17 @@ class Engine:
         per_tok = 0.0
         ar = self.decode_plans.get("layer_allreduce")
         if ar is not None:
-            per_tok += 2 * self.cfg.n_layers * top_plan(ar).estimate_us
+            ar_per_layer = 1 if self.cfg.family == "moe" else 2
+            per_tok += ar_per_layer * self.cfg.n_layers * \
+                top_plan(ar).estimate_us
             if "logits_allgather" in self.decode_plans:
                 per_tok += top_plan(ar).estimate_us
         ag = self.decode_plans.get("logits_allgather")
         if ag is not None:
             per_tok += top_plan(ag).estimate_us
+        a2a = self.decode_plans.get("moe_alltoall")
+        if a2a is not None:
+            per_tok += 2 * self.cfg.n_layers * top_plan(a2a).estimate_us
         return dict(mode=self.mode, plans=cards,
                     predicted_comm_us_per_token=round(per_tok, 2),
                     health=dict(self.comm.health),

@@ -79,8 +79,9 @@ def test_bucket_overflow_and_unported_strategy():
     bp = c.plan_for("all_reduce", (4, 8), torch.float32, buckets=(2, 4))
     with pytest.raises(ValueError, match="exceeds the largest bucket"):
         bp(_x(2, 5, 8))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        c.plan_for("all_to_all", (8, 8), torch.float32, buckets=(4,))
+    # the 'blocks' families: payload rows must split into per-rank blocks
+    with pytest.raises(ValueError, match="per-rank blocks"):
+        c.plan_for("all_to_all", (7, 8), torch.float32, buckets=(4,))
 
 
 def test_json_round_trip():

@@ -158,6 +158,34 @@ def test_explicit_replays_not_recompiles():
 
 
 def test_unported_family_raises():
-    cfg = configs.reduced(configs.get_config("mixtral-8x22b"))
+    cfg = configs.reduced(configs.get_config("hymba-1.5b"))
     with pytest.raises(NotImplementedError):
         tf.init_params(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-12b"])
+def test_every_sharded_leaf_lies_contiguous_per_layer(arch):
+    """Dense leaves share the experts' layout (the MoE case is in
+    tests/test_torch_moe.py) whichever dim they split: ``wq``,
+    ``w_gate`` and ``w_up`` on dim 2, ``wo`` and ``w_down`` on dim 1.
+    Rank r holds its block along the split dim, and each layer's slice
+    is contiguous."""
+    from repro_torch.distributed.sharding import (SHARD_DIMS,
+                                                  explicit_decode_params)
+    from repro_torch.mesh import RankAxis
+    cfg = configs.reduced(configs.get_config(arch))
+    params = tf.init_params(cfg, device="cpu", seed=5)
+    tp = 2
+    ex = explicit_decode_params(params, cfg, RankAxis("model", tp, "cpu"))
+    seen = 0
+    for slot, eslot in zip(params["layers"], ex["layers"]):
+        for (part, name), dim in SHARD_DIMS.items():
+            if name not in slot.get(part, {}):
+                continue
+            v, ev = slot[part][name], eslot[part][name]
+            for g in range(v.shape[0]):
+                assert ev[:, g].is_contiguous()
+                for r, want in enumerate(v[g].chunk(tp, dim - 1)):
+                    assert torch.equal(ev[r, g], want)
+            seen += 1
+    assert seen == 5 * len(params["layers"])  # wq, wo and 3 MLP

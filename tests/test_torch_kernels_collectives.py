@@ -5,7 +5,7 @@ runs it (``shard_map`` over ``jax.devices()[:n]``, interpret mode), in
 f32, bf16 and int32. Also the LL packet layout, the channel model, the
 dispatch rules of ``ops`` and the kernels' host-side bookkeeping; the
 CUDA kernels themselves are held against these plain versions on the
-card by ``chip_smoke.py`` phase 8."""
+card by ``chip_smoke.py`` phases 8 and 9."""
 import functools
 
 import jax
@@ -18,6 +18,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from repro.compat import shard_map
 from repro.kernels.allgather_ring import all_gather_ring as jax_ag_ring
 from repro.kernels.allreduce_1pa import all_reduce_1pa as jax_ar_1pa
+from repro.kernels.alltoall import all_to_all_pallas as jax_a2a
 from repro.kernels.reducescatter_2pa import all_gather_2pa as jax_ag_2pa
 from repro.kernels.reducescatter_2pa import all_reduce_2pa as jax_ar_2pa
 from repro.kernels.reducescatter_2pa import \
@@ -113,6 +114,42 @@ def test_plain_bit_equal_to_jax_kernel(name, n, dtype_name):
     got = KERNELS[name][0](_torch(_input(name, n, dtype_name), dtype_name))
     want = _jax_outputs(n, dtype_name)[name]
     assert got.device.type == "cpu"
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(_numpy(got), want)
+
+
+A2A_SHAPES = ((8, 128), (16, 256))     # tests/test_kernels_hierarchical.py
+
+
+@functools.lru_cache(maxsize=None)
+def _a2a_inputs(n, dtype_name):
+    r = np.random.RandomState(1000 + n * 10 + list(DTYPES).index(dtype_name))
+    out = []
+    for rows, cols in A2A_SHAPES:
+        shape = (n, n * rows, cols)
+        out.append(r.randint(-100, 100, size=shape).astype(np.int32)
+                   if dtype_name == "int32"
+                   else r.randn(*shape).astype(np.float32))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_a2a_outputs(n, dtype_name):
+    """The reference all_to_all_pallas (interpret mode) on both shapes."""
+    return _run_jax([lambda xs, n: jax_a2a(xs, axis="x", axis_size=n)] * 2,
+                    _a2a_inputs(n, dtype_name), n, dtype_name)
+
+
+@pytest.mark.parametrize("shape_i", range(len(A2A_SHAPES)))
+@pytest.mark.parametrize("dtype_name", list(DTYPES))
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_all_to_all_plain_bit_equal_to_jax_kernel(n, dtype_name, shape_i):
+    """A pure copy: exact in every dtype, block ``c`` of rank ``d`` landing
+    as block ``d`` of rank ``c``."""
+    x = _torch(_a2a_inputs(n, dtype_name)[shape_i], dtype_name)
+    got = ops.all_to_all(x)
+    want = _jax_a2a_outputs(n, dtype_name)[shape_i]
+    assert got.device.type == "cpu" and got.dtype == x.dtype
     assert got.shape == want.shape
     np.testing.assert_array_equal(_numpy(got), want)
 
@@ -216,7 +253,8 @@ def test_ring_neighbors():
      "unknown all_reduce algo 'ring'"),
     (lambda x: ops.all_reduce(x, algo="2ph"), NotImplementedError,
      "item 10"),
-    (lambda x: ops.all_to_all(x), NotImplementedError, "item 7"),
+    (lambda x: ops.all_to_all(x[:, :3]), ValueError,
+     "do not split into 4 blocks"),
     (lambda x: ops.fused_allgather_matmul(x, x), NotImplementedError,
      "item 9"),
     (lambda x: ops.flash_attention(x, x, x), NotImplementedError, "item 8"),
@@ -245,6 +283,7 @@ def test_cpu_tensor_never_reaches_a_cuda_library(monkeypatch):
     x = torch.randn(4, 8, 16)
     for name in NAMES:
         KERNELS[name][0](x)
+    ops.all_to_all(x)
     assert not comm_utils.LAUNCHES
     for call in (lambda: ops.all_reduce(x, algo="1pa", backend="cuda"),
                  lambda: ops.all_reduce(x, algo="1pa", use_ll=False,
@@ -252,7 +291,8 @@ def test_cpu_tensor_never_reaches_a_cuda_library(monkeypatch):
                  lambda: ops.all_reduce(x, backend="cuda"),
                  lambda: ops.reduce_scatter(x, backend="cuda"),
                  lambda: ops.all_gather(x, algo="allpairs", backend="cuda"),
-                 lambda: ops.all_gather(x, backend="cuda")):
+                 lambda: ops.all_gather(x, backend="cuda"),
+                 lambda: ops.all_to_all(x, backend="cuda")):
         with pytest.raises(ValueError, match="CUDA tensors only"):
             call()
 
