@@ -4,6 +4,7 @@
     python3 chip_smoke.py                # every phase; needs one CUDA card
     python3 chip_smoke.py --phases 1,2,3 # device, build, kernel checks only
     python3 chip_smoke.py --phases 1,2,9 # build, then the MoE slice
+    python3 chip_smoke.py --phases 1,2,10 # build, then the prefill slice
 
 Phases, each printing one JSON line (any failure raises, exit != 0):
 
@@ -26,8 +27,9 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    beside its HBM bound, the plain version and a one-call PyTorch
    yardstick;
 7. (opt-in, ``--phases 7``) a ``torch.profiler`` breakdown of one
-   decode step in each mode, for the main paths of phases 4 and 9:
-   device busy share and the top kernels;
+   decode step in each mode, for the main paths of phases 4 and 9, and
+   of one prefill forward of each phase-10 model: device busy share and
+   the top kernels;
 8. collective library — ``repro_torch.kernels.ops`` and its four
    kernels (1PA AllReduce LL/HB, all-pairs ReduceScatter and AllGather,
    ring AllGather): each op × algo × protocol bit-equal to its plain
@@ -58,21 +60,41 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    steps; one full-width MoE layer through ``ops.all_to_all`` bit-equal
    to the same layer through the plan, then 4 decode steps' worth of
    those layers (64 kernel launches, counted); and the kernel's device
-   time at the MoE sizes and over the per-rank sweep at n=4.
+   time at the MoE sizes and over the per-rank sweep at n=4;
+10. full-sequence prefill — the flash-attention kernel
+   (``csrc/flash_attention.cu``) against its plain version within the
+   reference's tolerances (f32 2e-5, bf16 3e-2) and a relative L2 error
+   of 1e-5 (f32) or 1e-2 (bf16) over the reference tests' grid, ragged
+   s, grouped KV heads, head dims 80 and 256 and the main path's shapes;
+   the main path — ``make_prefill_step`` and ``forward`` of qwen3-1.7b
+   (8 x 2048 tokens), gemma3-12b (2 x 4096, all 48 layers, 40 of them
+   windowed) and hubert-xlarge (4 x 1024 float frames) at full width and
+   depth on seeded random bf16 weights, each exactly one kernel launch
+   per layer and no plain-core call, within a relative L2 error of 0.05
+   of the same forward with the plain core, the first layer's core
+   within 1e-2 on its own inputs, and two controls in plain torch (the
+   kernel's rounding inside both limits, a skipped key tile past 1e-2);
+   qwen3-1.7b's fused prefill against the engine's token by token (8 x
+   128 tokens; bf16 within 0.05, f32 at 4 layers within 1e-4 with equal
+   argmax); and the kernel's device time at each main-path shape beside
+   its bound, its plain version and ``scaled_dot_product_attention``.
 
 The last lines are the card's nvidia-smi line, one ``{"kernels": [...]}``
 JSON object, and ``{"ok": true, "device": {...}}``. The whole record
 also goes to ``chiprun_out/chip_smoke.json``.
 The kernels line holds one entry per kernel. The executor's times are
 the launch-weighted mean of both main paths' decode mixes, each path's
-own under ``by_path`` and every shape's under ``per_shape``; the other
-kernels' per-shape times are in the phase lines.
+own under ``by_path`` and every shape's under ``per_shape``; flash
+attention's are the mean over the layers of one forward of each phase-10
+model, every shape's under ``per_shape``; the other kernels' per-shape
+times are in the phase lines.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import pathlib
 import subprocess
@@ -138,6 +160,32 @@ MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_LAYERS, MOE_F32_LAYERS = 8, 2
 A2A_SOURCE = "src/repro_torch/csrc/alltoall.cu"
 A2A_REPLACES = "src/repro/kernels/alltoall.py:26"
+# phase 10: full-sequence prefill through the flash-attention kernel
+FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention.py:37"
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
+# kernel vs plain version: the reference test's tolerances (atol = rtol)
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# and a scale-free one, ||got - want|| / ||want||, at every case and on
+# each model's own layer inputs: the late rows of a long softmax average
+# many keys and are small, so an absolute tolerance sized for the early
+# rows would pass a fault that touches only late rows
+FA_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# the control fault: for the second half of the queries, the key tile of
+# this many keys holding the first key in reach is skipped (a ``lo`` off
+# by one tile, touching only late rows)
+FAULT_TILE = 64
+# arch -> (batch, tokens) of its prefill; full width and depth, bf16
+PREFILL = {"qwen3-1.7b": (8, 2048), "gemma3-12b": (2, 4096),
+           "hubert-xlarge": (4, 1024)}
+# the kernel's forward against the same forward with the plain attention
+# core (the reference's chunked online softmax): bf16 activations, f32
+# softmax in both, P rounded to bf16 only in the kernel
+PREFILL_REL_TOL = 0.05
+# fused prefill against the engine's token by token (auto mode)
+FUSED_BATCH, FUSED_TOKENS = 8, 128
+FUSED_F32_LAYERS, FUSED_F32_TOL = 4, 1e-4
+PREFILL_REPEATS = 3
 
 RECORD: dict = {}
 
@@ -216,6 +264,7 @@ def phase_build():
     build.allpairs_2pa_library()
     build.allgather_ring_library()
     build.alltoall_library()
+    build.flash_attention_library()
     ptxas = [ln.strip() for b in build.last_build.values()
              for ln in b["log"].splitlines() if "registers" in ln]
     emit("build", seconds=round(time.perf_counter() - t, 3),
@@ -466,13 +515,70 @@ def phase_kernel_time(device, gen):
     return rows_out
 
 
+def _device_rows(prof, steps: int):
+    """(device µs per step, launches per step, kernel name) of every
+    device-side kernel in a profile, largest first: a CPU op's self
+    device time repeats the kernels it launched, so only CUDA events."""
+    from torch.autograd import DeviceType
+    rows = [(e.self_device_time_total / steps, e.count // steps, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    return sorted(rows, reverse=True)
+
+
+def _profile_prefill(device):
+    """Where one prefill forward's time goes, for each phase-10 model:
+    ``torch.profiler`` over one ``make_prefill_step`` call after a warm
+    one; device busy share with and without the profiler, the flash
+    kernel's share, and the kernels that take most of the time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.distributed.step import make_prefill_step
+    from repro_torch.models import transformer as tf
+    out = {}
+    for i, (arch, (b, s)) in enumerate(PREFILL.items()):
+        cfg = configs.get_config(arch)
+        gen = torch.Generator(device=device).manual_seed(10 + i)
+        params = tf.init_params(cfg, gen, device=device)
+        tokens = (torch.randn((b, s, cfg.d_model), generator=gen,
+                              device=device) if cfg.frontend != "none" else
+                  torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                device=device))
+        step = make_prefill_step(cfg)
+        step(params, tokens)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(params, tokens)
+        torch.cuda.synchronize()
+        bare_ms = (time.perf_counter() - t) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            step(params, tokens)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        rows = _device_rows(prof, 1)
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        out[arch] = dict(
+            batch=b, tokens=s, wall_ms=wall, wall_ms_unprofiled=bare_ms,
+            device_busy_ms=busy_ms,
+            device_busy_share_unprofiled=busy_ms / bare_ms,
+            flash_ms=sum(r[0] for r in rows if "fa_" in r[2]) / 1e3,
+            top_kernels=[dict(name=k[:90], us=us, launches=c)
+                         for us, c, k in rows[:12]])
+        del params, tokens, step
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_profile(device):
     """Opt-in (``--phases 7``): where one decode step's time goes —
     ``torch.profiler`` over 4 steps of each mode at each main path's
     shape (qwen3-1.7b, phase 4; phi3.5-moe at 8 layers, phase 9); device
     busy share = summed kernel time over the steps' wall time, with and
-    without the profiler, and the kernels that take most of it."""
-    from torch.autograd import DeviceType
+    without the profiler, and the kernels that take most of it. Then the
+    same for one prefill forward of each phase-10 model."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
@@ -508,15 +614,7 @@ def phase_profile(device):
                     eng.pos += 1
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t) * 1e3 / steps
-            rows = []
-            for e in prof.key_averages():
-                # device-side kernel events only: a CPU op's self device
-                # time repeats the kernels it launched
-                if (e.device_type == DeviceType.CUDA
-                        and e.self_device_time_total):
-                    rows.append((e.self_device_time_total / steps,
-                                 e.count // steps, e.key))
-            rows.sort(reverse=True)
+            rows = _device_rows(prof, steps)
             busy_ms = sum(r[0] for r in rows) / 1e3
             out[arch][mode] = dict(
                 n_layers=cfg.n_layers, step_wall_ms=wall_ms,
@@ -531,7 +629,7 @@ def phase_profile(device):
         del params
         torch.cuda.empty_cache()
     emit("profile", note="profiler on: times include its overhead",
-         **out)
+         prefill=_profile_prefill(device), **out)
 
 
 def _rand(shape, dtype, gen, device):
@@ -1078,11 +1176,444 @@ def phase_moe(device, gen):
     return err, layer["launches"]["all_to_all"], exec_launches, timing
 
 
+def _fa_cases():
+    """(b, h, h_kv, s, hd, dtype, causal, window, label) of the
+    kernel-vs-plain grid: the reference tests' grid, its windows and
+    block-skip case, ragged s, KV-head groups, head dims 80 and 256 (label
+    None), and the main path's shapes (:func:`_fa_main_shapes`)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = [(1, 2, 2, s, hd, dt, causal, None)
+           for s, hd in ((256, 64), (512, 128)) for dt in (f32, bf16)
+           for causal in (True, False)]
+    out += [(1, 2, 2, 512, 64, f32, True, w) for w in (128, 256)]
+    out.append((2, 1, 1, 1024, 64, f32, True, 128))
+    out += [(2, 4, 2, s, 64, dt, causal, w) for s in (12, 200)
+            for dt in (f32, bf16)
+            for causal, w in ((True, None), (False, None), (True, 64),
+                              (False, 64))]
+    out += [(2, 8, 8 // r, 300, 128, dt, True, None) for r in (1, 2, 4)
+            for dt in (f32, bf16)]
+    out += [(2, 4, hkv, 333, hd, dt, causal, w) for hd in (80, 256)
+            for dt in (f32, bf16)
+            for hkv, causal, w in ((2, True, None), (4, False, None),
+                                   (2, True, 100))]
+    out = [case + (None,) for case in out]
+    out += [shape[:9] for shape in _fa_main_shapes()]
+    return out
+
+
+def _fa_main_shapes():
+    """The attention cores of phase 10's main path: (b, h, h_kv, s, hd,
+    dtype, causal, window, label, layers per forward)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    out = []
+    for arch, (b, s) in PREFILL.items():
+        cfg = configs.get_config(arch)
+        wins = tf.layer_windows(cfg)
+        for win in sorted(set(wins), key=lambda w: (w is None, w)):
+            label = arch if len(set(wins)) == 1 else \
+                f"{arch}-{'local' if win else 'global'}"
+            out.append((b, cfg.n_heads, cfg.n_kv_heads, s, cfg.hd,
+                        torch.bfloat16, cfg.causal, win, label,
+                        wins.count(win) * cfg.n_layers // len(wins)))
+    return out
+
+
+def _fa_qkv(b, h, hkv, s, hd, dtype, gen, device):
+    return (_rand((b, h, s, hd), dtype, gen, device),
+            _rand((b, hkv, s, hd), dtype, gen, device),
+            _rand((b, hkv, s, hd), dtype, gen, device))
+
+
+def _fa_vs_plain(device, gen):
+    """Every case of :func:`_fa_cases`, kernel against plain version on
+    the same seeded inputs: within FA_TOL elementwise and FA_REL_TOL in
+    relative L2. Returns the case count, the largest |err| and relative L2
+    error of each dtype, and the relative L2 error of each main shape."""
+    from repro_torch.kernels import flash_attention as fa
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    rels = dict(errs)
+    main_rels = {}
+    cases = _fa_cases()
+    for b, h, hkv, s, hd, dt, causal, win, label in cases:
+        q, k, v = _fa_qkv(b, h, hkv, s, hd, dt, gen, device)
+        got = fa.flash_attention(q, k, v, causal=causal, window=win)
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=win)
+        torch.cuda.synchronize()
+        name = str(dt).split(".")[-1]
+        errs[name] = max(errs[name],
+                         (got.float() - want.float()).abs().max().item())
+        rel = _rel(got, want)
+        rels[name] = max(rels[name], rel)
+        if label is not None:
+            main_rels[label] = rel
+        tol = FA_TOL[dt]
+        what = (f"b={b} h={h}/{hkv} s={s} hd={hd} {dt} causal={causal} "
+                f"window={win}")
+        check(got.dtype == dt and bool(torch.allclose(
+            got.float(), want.float(), atol=tol, rtol=tol)),
+            f"flash kernel != plain: {what}")
+        check(rel <= FA_REL_TOL[dt],
+              f"flash kernel != plain: relative L2 {rel} at {what}")
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return len(cases), errs, rels, main_rels
+
+
+@contextlib.contextmanager
+def _plain_attention_calls():
+    """Count calls of the plain attention cores (the flash kernel's plain
+    version and the model's torch core) while the block runs."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import blocks
+    calls = {"flash_attention_plain": 0, "_plain_core": 0}
+    saved = [(fa, "flash_attention_plain"), (blocks, "_plain_core")]
+    originals = [getattr(mod, name) for mod, name in saved]
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    for (mod, name), fn in zip(saved, originals):
+        setattr(mod, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in zip(saved, originals):
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def _first_cores():
+    """Keep the q/k/v of the first kernel call of each window kind (layer
+    0, and gemma3-12b's first global layer) while the block runs."""
+    from repro_torch.models import blocks
+    seen = {}
+    launch = blocks.flash_attention
+
+    def keep(q, k, v, *, causal, window, backend=None):
+        seen.setdefault(window, (q, k, v, causal))
+        return launch(q, k, v, causal=causal, window=window, backend=backend)
+
+    blocks.flash_attention = keep
+    try:
+        yield seen
+    finally:
+        blocks.flash_attention = launch
+
+
+@contextlib.contextmanager
+def _plain_core_as(core):
+    """The model's plain attention core replaced by ``core`` while the
+    block runs."""
+    from repro_torch.models import blocks
+    plain = blocks._plain_core
+    blocks._plain_core = core
+    try:
+        yield
+    finally:
+        blocks._plain_core = plain
+
+
+def _fault_mask(s, window, device):
+    """(s, s) True where the control fault skips a key: rows in the second
+    half, in the FAULT_TILE-key tile holding the row's first key in reach
+    (0, or the window's first)."""
+    q_pos = torch.arange(s, device=device)[:, None]
+    k_pos = torch.arange(s, device=device)[None, :]
+    lo = (q_pos - window + 1).clamp_min(0) if window else 0 * q_pos
+    return (q_pos >= s // 2) & (k_pos // FAULT_TILE == lo // FAULT_TILE)
+
+
+def _control_core(q, k, v, cfg, *, window, fault=False):
+    """Controls for the model's plain attention core, in plain torch, one
+    KV head at a time. The kernel's rounding: f32 logits and softmax, the
+    unnormalised P rounded to q's dtype for P V, f32 accumulation, divided
+    by the f32 row sum. With ``fault``, the same with the keys of
+    :func:`_fault_mask` skipped. q (b, h, s, hd), k/v (b, h_kv, s, hd)."""
+    from repro_torch.models import blocks
+    b, h, s, hd = q.shape
+    g = h // k.shape[1]
+    mask = blocks._attn_mask(s, s, causal=cfg.causal, window=window,
+                             device=q.device)
+    if fault:
+        mask &= ~_fault_mask(s, window, q.device)
+    out = torch.empty_like(q)
+    for n in range(k.shape[1]):
+        heads = slice(n * g, (n + 1) * g)
+        logits = (q[:, heads].float() * hd ** -0.5) @ \
+            k[:, n:n + 1].float().transpose(-1, -2)
+        logits = torch.where(mask, logits, -1e30)
+        pr = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        den = pr.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        out[:, heads] = ((pr.to(q.dtype).float() @ v[:, n:n + 1].float())
+                         / den).to(q.dtype)
+    return out
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _core_controls(cfg, first):
+    """On the inputs the forward gave the first layer of each window kind:
+    the kernel, the rounding control and the fault control
+    (:func:`_control_core`) against the plain version, in relative L2."""
+    from repro_torch.kernels import flash_attention as fa
+    out = {}
+    for win, (q, k, v, causal) in first.items():
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=win)
+        got = fa.flash_attention(q, k, v, causal=causal, window=win)
+        out[f"window={win}"] = dict(
+            shape=list(q.shape), kv_heads=k.shape[1],
+            kernel_rel_err=_rel(got, want),
+            rounding_rel_err=_rel(_control_core(q, k, v, cfg, window=win),
+                                  want),
+            fault_rel_err=_rel(_control_core(q, k, v, cfg, window=win,
+                                             fault=True), want))
+    return out
+
+
+def _prefill_main_path(device):
+    """Each model at full width and depth on seeded random bf16 weights:
+    ``make_prefill_step`` and ``forward`` each launch the kernel once per
+    layer (counted from 0 around each) and never the plain core; the
+    output within PREFILL_REL_TOL of the same forward with the plain core;
+    the first layer's core within FA_REL_TOL on its own inputs; the
+    controls (:func:`_control_core`): the kernel's rounding in plain torch
+    within both limits, the fault past the core's (end to end, bf16
+    rounding through the layers alone reads 0.02-0.03, so the fault's
+    reading there is kept, not held); prefill ms per forward (median of
+    PREFILL_REPEATS step calls)."""
+    from repro_torch import configs
+    from repro_torch.core.executor import CudaExecutor
+    from repro_torch.distributed.step import make_prefill_step
+    from repro_torch.kernels import comm_utils
+    from repro_torch.kernels.flash_attention import KERNEL
+    from repro_torch.models import transformer as tf
+    out, launches = {}, 0
+    for i, (arch, (b, s)) in enumerate(PREFILL.items()):
+        cfg = configs.get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=device).manual_seed(10 + i)
+        params = tf.init_params(cfg, gen, device=device)
+        if cfg.frontend != "none":
+            tokens = torch.randn((b, s, cfg.d_model), generator=gen,
+                                 device=device)
+        else:
+            tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                   device=device)
+        step = make_prefill_step(cfg)
+        torch.cuda.synchronize()
+        counts = {}
+        with _plain_attention_calls() as plain_calls, \
+                _first_cores() as first:
+            for name, run in (
+                    ("step", lambda: step(params, tokens)),
+                    ("forward", lambda: tf.forward(params, cfg, tokens))):
+                comm_utils.LAUNCHES.clear()        # every count to 0
+                CudaExecutor.launches = 0
+                result = run()
+                torch.cuda.synchronize()
+                counts[name] = dict(comm_utils.LAUNCHES)   # read just after
+                check(counts[name] == {KERNEL: cfg.n_layers},
+                      f"{arch} {name}: launches {counts[name]}, want "
+                      f"{cfg.n_layers} of {KERNEL}")
+                check(CudaExecutor.launches == 0, "executor launched")
+                if name == "step":
+                    last = result
+                else:
+                    hidden = result
+        check(not any(plain_calls.values()),
+              f"{arch}: plain attention ran {plain_calls}")
+        launches += sum(c[KERNEL] for c in counts.values())
+        with torch.inference_mode():
+            plain_hidden = tf.forward(params, cfg, tokens, backend="torch")
+            plain_last = tf.logits_fn(params, cfg, plain_hidden[:, -1:])[:, 0]
+        check(last.shape == (b, cfg.vocab) and last.dtype == torch.float32,
+              f"{arch}: step output {tuple(last.shape)} {last.dtype}")
+        check(hidden.shape == (b, s, cfg.d_model), f"{arch}: hidden shape")
+        for t in (last, hidden):
+            check(bool(torch.isfinite(t).all()), f"{arch}: non-finite")
+        rec = dict(batch=b, tokens=s, n_layers=cfg.n_layers,
+                   d_model=cfg.d_model, heads=cfg.n_heads,
+                   kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                   causal=cfg.causal, window=cfg.window,
+                   launches=counts, plain_calls=plain_calls,
+                   hidden_rel_err=_rel(hidden, plain_hidden),
+                   last_logits_rel_err=_rel(last, plain_last),
+                   argmax_agree=float((last.argmax(-1)
+                                       == plain_last.argmax(-1)).float()
+                                      .mean()))
+        if cfg.family == "encoder":     # the encoder's product: all frames
+            with torch.inference_mode():
+                logits = tf.logits_fn(params, cfg, hidden)
+                plain_logits = tf.logits_fn(params, cfg, plain_hidden)
+            check(bool(torch.isfinite(logits).all()), f"{arch}: logits")
+            rec["logits_rel_err"] = _rel(logits, plain_logits)
+            del logits, plain_logits
+        rec["cores"] = _core_controls(cfg, first)
+        del first
+        with torch.inference_mode():
+            for name, fault in (("rounding", False), ("fault", True)):
+                with _plain_core_as(functools.partial(_control_core,
+                                                      fault=fault)):
+                    ctl = tf.forward(params, cfg, tokens, backend="torch")
+                rec[f"{name}_hidden_rel_err"] = _rel(ctl, plain_hidden)
+                if not fault:
+                    rec["hidden_rel_err_vs_rounding"] = _rel(hidden, ctl)
+                del ctl
+        print(json.dumps(dict(phase="prefill_model", arch=arch, **rec)),
+              flush=True)
+        for key in ("hidden_rel_err", "last_logits_rel_err",
+                    "logits_rel_err", "rounding_hidden_rel_err"):
+            if key in rec:
+                check(rec[key] <= PREFILL_REL_TOL,
+                      f"{arch}: {key} {rec[key]} > {PREFILL_REL_TOL}")
+        for key, core in rec["cores"].items():
+            check(core["kernel_rel_err"] <= FA_REL_TOL[torch.bfloat16],
+                  f"{arch} {key}: kernel vs plain on the layer's own "
+                  f"inputs, relative L2 {core['kernel_rel_err']}")
+            check(core["fault_rel_err"] > FA_REL_TOL[torch.bfloat16],
+                  f"{arch} {key}: the control fault reads "
+                  f"{core['fault_rel_err']}")
+        del plain_hidden, hidden
+        times = []
+        for _ in range(PREFILL_REPEATS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            step(params, tokens)
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        ms = float(np.median(times))
+        rec.update(prefill_ms=ms, prefill_ms_all=times,
+                   tokens_per_s=b * s / ms * 1e3,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        out[arch] = rec
+        del params, tokens, step
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def _fused_vs_stepwise(device):
+    """qwen3-1.7b, batch 8 x 128 tokens, auto mode: the fused step's
+    last-position logits against ``Engine.prefill`` token by token, in
+    bf16 at full depth and in f32 at FUSED_F32_LAYERS layers."""
+    from repro_torch import configs
+    from repro_torch.distributed.step import make_prefill_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import Engine, ServeConfig
+    out = {}
+    for dtype, n_layers, tol in (("bfloat16", None, PREFILL_REL_TOL),
+                                 ("float32", FUSED_F32_LAYERS,
+                                  FUSED_F32_TOL)):
+        cfg = configs.get_config(ARCH)
+        cfg = dataclasses.replace(cfg, dtype=dtype,
+                                  n_layers=n_layers or cfg.n_layers)
+        params = tf.init_params(cfg, torch.Generator(device=device)
+                                .manual_seed(20), device=device)
+        prompts = np.random.RandomState(20).randint(
+            0, cfg.vocab, (FUSED_BATCH, FUSED_TOKENS))
+        fused = make_prefill_step(cfg)(params, prompts)
+        eng = Engine(cfg, params, ServeConfig(batch=FUSED_BATCH,
+                                              max_kv=2 * FUSED_TOKENS))
+        stepwise = eng.prefill(prompts)
+        torch.cuda.synchronize()
+        rel = _rel(fused, stepwise)
+        agree = bool(torch.equal(fused.argmax(-1), stepwise.argmax(-1)))
+        out[dtype] = dict(n_layers=cfg.n_layers, rel_err=rel,
+                          max_abs_err=(fused - stepwise.float()).abs().max()
+                          .item(), argmax_equal=agree, tol=tol)
+        check(rel <= tol, f"fused vs token by token, {dtype}: rel {rel}")
+        if dtype == "float32":
+            check(agree, "fused vs token by token, f32: argmax differs")
+        del eng, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _attention_pairs(s, causal, window) -> int:
+    """Unmasked (query, key) pairs of one head."""
+    q = np.arange(s)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
+    hi = q + 1 if causal else np.full_like(q, s)
+    return int((hi - lo).sum())
+
+
+def _fa_time(device, gen):
+    """Per main-path shape: the kernel's device time per launch beside its
+    bound (the larger of 4 * hd FLOPs per unmasked pair and head over the
+    bf16 peak, and q, k, v read once and o written once over HBM), the
+    plain version, and the library yardstick the port never calls
+    (``scaled_dot_product_attention``; a boolean mask for a window)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import blocks
+    rows = []
+    for b, h, hkv, s, hd, dt, causal, win, label, layers in \
+            _fa_main_shapes():
+        q, k, v = _fa_qkv(b, h, hkv, s, hd, dt, gen, device)
+        if win is None:
+            def lib(q=q, k=k, v=v, causal=causal):
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True)
+        else:
+            mask = blocks._attn_mask(s, s, causal=causal, window=win,
+                                     device=device)
+
+            def lib(q=q, k=k, v=v, mask=mask):
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+        k_ms, k_cov = device_ms(lambda: fa.flash_attention(
+            q, k, v, causal=causal, window=win), 20)
+        p_ms, p_cov = device_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=causal, window=win), 3)
+        l_ms, l_cov = device_ms(lib, 20)
+        pairs = _attention_pairs(s, causal, win)
+        flops = 4 * b * h * hd * pairs
+        nbytes = (2 * b * h + 2 * b * hkv) * s * hd * q.element_size()
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+        rows.append(dict(
+            shape=label, b=b, h=h, h_kv=hkv, s=s, hd=hd, causal=causal,
+            window=win, layers_per_forward=layers, ms=k_ms, plain_ms=p_ms,
+            library_ms=l_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+            ops_ms=t_ops * 1e3, bytes_ms=t_bytes * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            flops=flops, bytes=nbytes, tflops_per_s=flops / k_ms / 1e9,
+            sleep_covered=dict(kernel=k_cov, plain=p_cov, library=l_cov)))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_prefill(device, gen):
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    cases, errs, rels, main_rels = _fa_vs_plain(device, gen)
+    main, launches = _prefill_main_path(device)
+    fused = _fused_vs_stepwise(device)
+    timing = _fa_time(device, gen)
+    emit("prefill", cases=cases, max_abs_err=errs, tol=
+         {str(k).split(".")[-1]: v for k, v in FA_TOL.items()},
+         max_rel_err=rels, main_shape_rel_err=main_rels, rel_tol=
+         {str(k).split(".")[-1]: v for k, v in FA_REL_TOL.items()},
+         main_path=main, launches=launches, fused_vs_stepwise=fused,
+         shapes=timing, seconds=round(time.perf_counter() - t, 3))
+    return max(errs.values()), launches, timing
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9",
-                    help="comma-separated phases to run (default 1-6, 8 "
-                         "and 9; 7 profiles a decode step)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10",
+                    help="comma-separated phases to run (default 1-6 and "
+                         "8-10; 7 profiles a decode step)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -1101,7 +1632,7 @@ def main(argv=None) -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
-    max_err, launches, timing, coll, moe = None, None, None, None, None
+    max_err, launches, timing, coll, moe, prefill = (None,) * 6
     if 2 in phases:
         phase_build()
     if 3 in phases:
@@ -1118,6 +1649,8 @@ def main(argv=None) -> int:
         coll = phase_collectives(device, gen)
     if 9 in phases:
         moe = phase_moe(device, gen)
+    if 10 in phases:
+        prefill = phase_prefill(device, gen)
     kernels = []
     if timing is not None:
         # each main path's per-step launch mix at full occupancy (every
@@ -1186,6 +1719,21 @@ def main(argv=None) -> int:
             max_abs_err=a2a_err, ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by="bytes",
             library_ms=row["library_ms"]))
+    if prefill is not None:
+        # launch-weighted over the main path's forwards: each shape's
+        # layers per forward
+        fa_err, fa_launches, fa_timing = prefill
+        mean = {k: sum(r[k] * r["layers_per_forward"] for r in fa_timing)
+                / sum(r["layers_per_forward"] for r in fa_timing)
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                          "ops_ms", "bytes_ms")}
+        kernels.append(dict(
+            name="flash_attention", route="cuda", source=FA_SOURCE,
+            replaces=FA_REPLACES, launches=fa_launches, max_abs_err=fa_err,
+            **{k: mean[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "library_ms")},
+            bound_by="operations" if mean["ops_ms"] >= mean["bytes_ms"]
+            else "bytes", per_shape=fa_timing))
     emit("total", seconds=time.perf_counter() - t0)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -9,7 +9,11 @@ token hot path) — port of ``repro.distributed.step``'s serving half.
 * :class:`TPDecodeComms` replays them inside ``decode_step(comms=)``;
 * :func:`make_serve_step` builds the one-token step in ``auto`` mode
   (the unsharded model on one device) or ``explicit`` mode (rank-stacked
-  shards, every collective a plan replay).
+  shards, every collective a plan replay);
+* :func:`make_prefill_step` builds the full-sequence prefill forward
+  (what a prompt costs before its first token) in auto mode: one
+  unsharded model, each layer's attention core one flash-attention
+  launch on the card.
 """
 from __future__ import annotations
 
@@ -20,12 +24,12 @@ import torch
 from repro_torch.core import comm as comm_lib
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.moe_parallel import ep_capacity, moe_layer_ep
-from repro_torch.mesh import RankAxis
+from repro_torch.mesh import DeviceLike, RankAxis, resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["slot_buckets", "compile_decode_plans", "TPDecodeComms",
-           "make_serve_step", "StepLayout"]
+           "make_serve_step", "make_prefill_step", "StepLayout"]
 
 
 def slot_buckets(batch_local: int) -> tuple[int, ...]:
@@ -193,3 +197,21 @@ def make_serve_step(cfg: ModelConfig, axis: RankAxis, *, batch: int,
         params=lambda p: shd.explicit_decode_params(p, cfg, axis),
         cache=lambda: tf.init_cache(cfg, batch, max_kv, device=axis.device,
                                     ranks=axis.n))
+
+
+def make_prefill_step(cfg: ModelConfig, *, device: DeviceLike = None):
+    """Full-sequence forward returning last-position logits, ``step(
+    params, tokens) -> (b, vocab)`` f32: the port of the reference's
+    ``make_prefill_step`` in auto mode (cache filling is engine-side).
+    ``tokens`` are ``(b, s)`` ints, or ``(b, s, d)`` float frames for a
+    frontend arch; ``params`` lie on ``device`` (default: the CUDA card,
+    raising where there is none)."""
+    device = resolve_device(device)
+
+    def step(params, tokens):
+        tokens = torch.as_tensor(tokens, device=device)
+        with torch.inference_mode():
+            hidden = tf.forward(params, cfg, tokens)
+            return tf.logits_fn(params, cfg, hidden[:, -1:])[:, 0]
+
+    return step

@@ -22,7 +22,8 @@ from typing import Dict, List, Optional
 
 __all__ = ["CSRC", "build_dir", "nvcc", "build_all", "executor_library",
            "allreduce_1pa_library", "allpairs_2pa_library",
-           "allgather_ring_library", "alltoall_library", "last_build"]
+           "allgather_ring_library", "alltoall_library",
+           "flash_attention_library", "last_build"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _REPO = pathlib.Path(__file__).resolve().parents[3]
@@ -129,8 +130,9 @@ _P, _I, _LL, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 
 
 def _collective_library(stem: str, launchers: Dict[str, list]) -> ctypes.CDLL:
-    """A collective kernel library, built at first use: each launcher
-    returns a cudaError_t, ``<stem>_error_string`` names it."""
+    """A kernel library with a plain C interface, built at first use:
+    each launcher returns a cudaError_t, ``<stem>_error_string`` names
+    it."""
     lib = _BOUND.get(stem)
     if lib is not None:
         return lib
@@ -177,3 +179,12 @@ def alltoall_library() -> ctypes.CDLL:
     count, blocks, epoch, threads, stream)``."""
     return _collective_library("alltoall", {
         "all_to_all_launch": [_P, _P, _P, _I, _I, _LL, _I, _U, _I, _P]})
+
+
+def flash_attention_library() -> ctypes.CDLL:
+    """``csrc/flash_attention.cu``: ``flash_attention_launch(q, k, v, out,
+    dtype, b, h, h_kv, s, hd, causal, window, stream)`` (``window`` 0:
+    none)."""
+    return _collective_library("flash_attention", {
+        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _P]})

@@ -1,4 +1,5 @@
-"""One import surface for the port's collective kernels.
+"""One import surface for the port's collective kernels and flash
+attention.
 
 Port of ``repro/kernels/ops.py``, the library of tuned collective kernels
 behind the standard collective API (paper §4.4):
@@ -6,6 +7,7 @@ behind the standard collective API (paper §4.4):
     from repro_torch.kernels import ops
     y = ops.all_reduce(x, algo="1pa")    # x: (n, rows, cols), rank-stacked
     z = ops.all_to_all(x)                # MoE dispatch/combine
+    o = ops.flash_attention(q, k, v)     # q (b, h, s, hd), k/v (b, h_kv, s, hd)
 
 A CUDA tensor runs the hand-written kernel, a CPU tensor its plain
 version; ``backend="torch"`` or ``"cuda"`` forces one (a CPU tensor never
@@ -16,9 +18,12 @@ naming their ROADMAP.md §2 item; none is stood in for by a plain version.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import alltoall
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.allgather_ring import all_gather_ring
 from repro_torch.kernels.allreduce_1pa import all_reduce_1pa
 from repro_torch.kernels.reducescatter_2pa import (all_gather_2pa,
@@ -68,6 +73,18 @@ def fused_allgather_matmul(x: torch.Tensor, w: torch.Tensor,
                       "kernels/collective_matmul.py")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    **kw) -> torch.Tensor:
-    raise _not_ported("flash_attention", 8, "kernels/flash_attention.py")
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    block_q: int = 128, block_kv: int = 128,
+                    backend: Optional[str] = None) -> torch.Tensor:
+    """The reference's surface: ``q`` ``(b, h, s, hd)``, ``k``/``v``
+    ``(b, h_kv, s, hd)``, and ``s`` a multiple of both blocks. The blocks
+    are the TPU's tiling and are checked only: the CUDA kernel tiles by
+    its own, and :func:`repro_torch.kernels.flash_attention.flash_attention`
+    takes any ``s``."""
+    s = q.shape[-2]
+    if s % block_q or s % block_kv:
+        raise ValueError(f"sequence length {s} does not divide into "
+                         f"block_q={block_q} and block_kv={block_kv}")
+    return fa.flash_attention(q, k, v, causal=causal, window=window,
+                              backend=backend)

@@ -1,19 +1,20 @@
-"""Shared model blocks for decode: RMS norm, RoPE, GQA decode attention
+"""Shared model blocks: RMS norm, RoPE, full-sequence GQA attention
+(causal, sliding-window or bidirectional) and GQA decode attention
 (whole-model and per-TP-shard), SwiGLU MLP, the dense-einsum MoE layer
-and their initializers — the port of ``repro.models.blocks`` that dense
-and MoE decode run.
+and their initializers — the port of ``repro.models.blocks`` that the
+forward and dense and MoE decode run.
 
-Every function takes plain tensors and accepts optional *leading rank
-dims*: the auto path calls them on one model (``x`` is ``(b, s, d)``),
-the explicit-TP path on rank-stacked shards (``x`` is ``(tp, b, s, d)``
-and every weight carries the same leading ``tp`` axis), so one einsum
-computes every rank's shard. Layouts at the public functions are the
-reference's (``wq`` is ``(d, heads, hd)``, caches ``(b, kv_heads, kv,
-hd)``), so weights carry across one to one.
+Every decode function takes plain tensors and accepts optional *leading
+rank dims*: the auto path calls them on one model (``x`` is ``(b, s,
+d)``), the explicit-TP path on rank-stacked shards (``x`` is ``(tp, b,
+s, d)`` and every weight carries the same leading ``tp`` axis), so one
+einsum computes every rank's shard. Layouts at the public functions are
+the reference's (``wq`` is ``(d, heads, hd)``, caches ``(b, kv_heads,
+kv, hd)``), so weights carry across one to one.
 
 The reference pins XLA-CPU reduction orders (``_tree_sum``) so fused and
-token-by-token programs agree bit for bit; this port's prefill is token
-by token, so its sums are plain torch reductions.
+token-by-token programs agree bit for bit; this port's sums are plain
+torch reductions, so the two agree within rounding.
 """
 from __future__ import annotations
 
@@ -24,12 +25,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "rope", "apply_rope", "decode_attention",
+from repro_torch.kernels import comm_utils
+from repro_torch.kernels.flash_attention import flash_attention
+
+__all__ = ["rms_norm", "rope", "apply_rope", "attention", "decode_attention",
            "mlp_swiglu", "top_k", "moe_layer", "init_linear", "init_attn",
            "init_mlp", "init_moe", "padded_heads"]
 
 Params = dict
 _MASKED = torch.finfo(torch.float32).min
+# the full-sequence paths' masked logit: large-negative instead of -inf
+# keeps exp() well defined for fully-masked rows of the online softmax
+_NEG = -1e30
 
 
 def _lift(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -73,25 +80,34 @@ def _rope_table_size(max_pos: int) -> int:
     return n
 
 
-def rope(pos: int, head_dim: int, theta: float, device,
+def rope(pos, head_dim: int, theta: float, device,
          max_pos: Optional[int] = None):
-    """Position ``pos`` -> cos/sin (head_dim/2,) from the host table,
-    which grows to cover the positions asked for; a position past
-    ``max_pos`` raises instead of wrapping."""
-    if pos < 0:
-        raise ValueError(f"rope(): negative position {pos}")
-    if max_pos is not None and pos >= max_pos:
-        raise ValueError(f"rope(): position {pos} >= declared max_pos "
+    """Position(s) -> cos/sin from the host table, which grows to cover
+    the positions asked for: an int ``pos`` gives ``(head_dim/2,)``, a
+    1-D tensor of positions ``(s,)`` gives ``(s, head_dim/2)``. A
+    position past ``max_pos`` raises instead of wrapping."""
+    if isinstance(pos, torch.Tensor):
+        lo, hi = ((int(pos.min()), int(pos.max())) if pos.numel()
+                  else (0, 0))
+    else:
+        lo = hi = int(pos)
+    if lo < 0:
+        raise ValueError(f"rope(): negative position {lo}")
+    if max_pos is not None and hi >= max_pos:
+        raise ValueError(f"rope(): position {hi} >= declared max_pos "
                          f"{max_pos}")
     cos_t, sin_t = _rope_device_tables(head_dim, float(theta),
-                                       _rope_table_size(pos + 1),
+                                       _rope_table_size(hi + 1),
                                        torch.device(device))
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(cos_t.device)
     return cos_t[pos], sin_t[pos]
 
 
 def apply_rope(x, cos, sin):
     """x: (..., head_dim) rotated by cos/sin broadcasting over
-    (..., head_dim/2)."""
+    (..., head_dim/2): one position's ``(head_dim/2,)`` or a sequence's
+    ``(s, head_dim/2)`` against ``x`` of ``(..., s, head_dim)``."""
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -114,6 +130,109 @@ def _softmax(logits):
     m = logits.amax(dim=-1, keepdim=True)
     e = torch.exp(logits - m)
     return e / e.sum(dim=-1, keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence attention
+# ---------------------------------------------------------------------------
+def _attn_mask(q_len: int, kv_len: int, *, causal: bool,
+               window: Optional[int], q_offset: int = 0, device=None):
+    """(q_len, kv_len) boolean mask. ``window``: SWA of that many
+    tokens."""
+    q_pos = torch.arange(q_len, device=device) + q_offset
+    k_pos = torch.arange(kv_len, device=device)
+    rel = q_pos[:, None] - k_pos[None, :]
+    mask = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    if causal:
+        mask &= rel >= 0
+    if window is not None:
+        mask &= rel < window
+    return mask
+
+
+def attention(p: Params, x, cfg, cos, sin, *, window: Optional[int],
+              backend: Optional[str] = None):
+    """Full-sequence GQA attention over positions ``0..s-1``. x: (b, s,
+    d_model) -> (b, s, d_model); ``cos``/``sin``: the ``(s, hd/2)`` RoPE
+    rows of those positions (:func:`rope`), looked up once per forward.
+
+    The core runs the flash-attention kernel on a CUDA tensor, for every
+    ``s``. On the CPU (or with ``backend="torch"``) it is the reference's
+    plain core: the materialized masked softmax, or the online softmax
+    over KV chunks when ``s > cfg.attn_chunk`` and ``s % cfg.attn_chunk
+    == 0``, so the (s, s) logits are never held at long context.
+    """
+    nh, _ = padded_heads(cfg)
+
+    # projected and normed in (b, heads, s, hd), the reference's order here
+    q = torch.einsum("bsd,dnh->bnsh", x, p["wq"])
+    k = torch.einsum("bsd,dnh->bnsh", x, p["wk"])
+    v = torch.einsum("bsd,dnh->bnsh", x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    if comm_utils.resolve_backend(x, backend) == "cuda":
+        out = flash_attention(q, k, v, causal=cfg.causal, window=window,
+                              backend="cuda")
+    else:
+        out = _plain_core(q, k, v, cfg, window=window)
+    if nh > cfg.n_heads:
+        # hard-mask padded heads: exact math, as in the reference
+        head_mask = (torch.arange(nh, device=x.device) < cfg.n_heads)
+        out = out * head_mask.to(out.dtype)[:, None, None]
+    return torch.einsum("bnsh,nhd->bsd", out, p["wo"])
+
+
+def _plain_core(q, k, v, cfg, *, window: Optional[int]):
+    """q: (b, nh, s, hd), k/v: (b, nkv, s, hd) -> (b, nh, s, hd): the
+    reference's torch core, grouped as ``(b, nkv, g, s, hd)``."""
+    b, nh, s, hd = q.shape
+    nkv = k.shape[1]
+    chunk = cfg.attn_chunk
+    q = q.reshape(b, nkv, nh // nkv, s, hd)
+    if s > chunk and s % chunk == 0:
+        out = _chunked_attn(q, k, v, cfg, window=window, chunk=chunk)
+    else:
+        logits = torch.einsum("bngsh,bnth->bngst", q, k).float()
+        logits = logits * hd ** -0.5
+        mask = _attn_mask(s, s, causal=cfg.causal, window=window,
+                          device=q.device)
+        logits = torch.where(mask, logits, _NEG)
+        probs = _softmax(logits).to(q.dtype)
+        out = torch.einsum("bngst,bnth->bngsh", probs, v)
+    return out.reshape(b, nh, s, hd)
+
+
+def _chunked_attn(q, k, v, cfg, *, window: Optional[int], chunk: int):
+    """Online softmax over KV chunks: O(s·chunk) live memory.
+
+    q: (b, nkv, g, s, hd); k/v: (b, nkv, s, hd). Running (max, denom,
+    acc) carried across chunks — the flash-attention recurrence."""
+    b, nkv, g, s, hd = q.shape
+    scale = hd ** -0.5
+    dev = q.device
+    m = torch.full((b, nkv, g, s), _NEG, device=dev)
+    l = torch.zeros((b, nkv, g, s), device=dev)
+    acc = torch.zeros((b, nkv, g, s, hd), device=dev)
+    for ci in range(s // chunk):
+        kc = k[:, :, ci * chunk:(ci + 1) * chunk]
+        vc = v[:, :, ci * chunk:(ci + 1) * chunk]
+        logits = torch.einsum("bngsh,bnth->bngst", q, kc).float() * scale
+        mask = _attn_mask(s, chunk, causal=cfg.causal, window=window,
+                          q_offset=-ci * chunk, device=dev)
+        logits = torch.where(mask, logits, _NEG)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        pr = torch.exp(logits - m_new[..., None])
+        l = l * alpha + pr.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bngst,bnth->bngsh", pr, vc.float())
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.to(q.dtype)
 
 
 def decode_attention(p: Params, x, cache_k, cache_v, pos: int, cfg, *,

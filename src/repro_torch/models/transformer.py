@@ -1,16 +1,21 @@
-"""The LM's decode path for the dense and MoE families (port of
-``repro.models.transformer``): seeded init, decode cache, one-token
-decode step — unsharded (auto) or on rank-stacked TP shards with the
-per-layer collectives replayed through compiled plans (explicit; for
-MoE the same axis carries expert parallelism).
+"""The LM behind one functional interface (port of
+``repro.models.transformer``) for the dense, MoE and encoder families:
+seeded init, the full-sequence forward (``forward``, whose attention core
+is the flash-attention kernel on the card) and, for dense and MoE, the
+decode cache and the one-token decode step — unsharded (auto) or on
+rank-stacked TP shards with the per-layer collectives replayed through
+compiled plans (explicit; for MoE the same axis carries expert
+parallelism).
 
 Parameter layout is the reference's: ``params["layers"]`` is a list
 (length = period) of per-slot layer dicts whose leaves carry a leading
 ``groups`` axis, so weights carry across one to one. The explicit
 layout (``distributed.sharding.explicit_decode_params``) puts a rank
 axis in front of every leaf: ``wq`` ``(groups, d, nh, hd)`` becomes
-``(tp, groups, d, nh/tp, hd)``. The other families (hybrid, rwkv6,
-encoder) raise ``NotImplementedError``.
+``(tp, groups, d, nh/tp, hd)``. The encoder family (hubert) has a
+forward and no decode, as in the reference's launcher: ``init_cache``
+and ``decode_step`` raise for it. The hybrid and rwkv6 families raise
+``NotImplementedError`` everywhere.
 """
 from __future__ import annotations
 
@@ -23,17 +28,18 @@ from repro_torch.models import blocks
 from repro_torch.models.blocks import rms_norm
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["init_params", "init_cache", "decode_step", "logits_fn",
-           "layer_windows", "n_groups"]
+__all__ = ["init_params", "init_cache", "decode_step", "forward",
+           "embed_tokens", "logits_fn", "layer_windows", "n_groups"]
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "encoder")
+DECODE_FAMILIES = ("dense", "moe")
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
+def _check_family(cfg: ModelConfig, families=FAMILIES) -> None:
+    if cfg.family not in families:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port's decode "
-            f"covers {FAMILIES}")
+            f"family {cfg.family!r} is not ported for this path; it covers "
+            f"{families}")
 
 
 def layer_windows(cfg: ModelConfig) -> list[Optional[int]]:
@@ -95,7 +101,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_kv: int, *,
     with ``kv_i = min(window, max_kv)`` for windowed slots. ``ranks``
     adds a leading rank axis: the explicit-TP cache is replicated, every
     rank holding every KV head."""
-    _check_family(cfg)
+    _check_family(cfg, DECODE_FAMILIES)
     device = resolve_device(device)
     dtype = dtype or cfg.tdtype
     _, nkv = blocks.padded_heads(cfg)
@@ -108,6 +114,44 @@ def init_cache(cfg: ModelConfig, batch: int, max_kv: int, *,
 
     wins = layer_windows(cfg)
     return {"k": [kv(w) for w in wins], "v": [kv(w) for w in wins]}
+
+
+def _run_layer(p, x, cfg: ModelConfig, win, cos, sin, backend):
+    h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+    x = x + blocks.attention(p["attn"], h, cfg, cos, sin, window=win,
+                             backend=backend)
+    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+    if cfg.family == "moe":
+        return x + blocks.moe_layer(p["moe"], h, cfg)
+    return x + blocks.mlp_swiglu(p["mlp"], h)
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    """Integer tokens -> embedding lookup; float inputs are precomputed
+    frontend embeddings (audio frames, vision patches) and pass through
+    in the model dtype."""
+    if tokens.is_floating_point():
+        return tokens.to(cfg.tdtype)
+    return params["embed"][tokens.long()]
+
+
+def forward(params, cfg: ModelConfig, tokens, *,
+            backend: Optional[str] = None):
+    """tokens: (b, s) int — or (b, s, d) float embeddings for frontend
+    archs -> the final hidden states (b, s, d), normed. Every layer's
+    attention core is one flash-attention kernel launch on the card;
+    ``backend="torch"`` runs the plain core instead (``"cuda"`` insists
+    on the kernel). Groups are walked as ``decode_step`` walks them."""
+    _check_family(cfg)
+    x = embed_tokens(params, cfg, tokens)
+    cos, sin = blocks.rope(torch.arange(x.shape[1]), cfg.hd, cfg.rope_theta,
+                           x.device, max_pos=cfg.max_seq)
+    wins = layer_windows(cfg)
+    for g in range(n_groups(cfg)):
+        for i, win in enumerate(wins):
+            x = _run_layer(_group(params["layers"][i], g, False), x, cfg,
+                           win, cos, sin, backend)
+    return rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
 def logits_fn(params, cfg: ModelConfig, hidden):
@@ -141,7 +185,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, comms=None):
     the dense oracle ``blocks.moe_layer``. ``comms=None`` is the auto
     path.
     """
-    _check_family(cfg)
+    _check_family(cfg, DECODE_FAMILIES)
     ranked = comms is not None
     if ranked and cfg.family == "moe" and comms.moe_plan is None:
         raise NotImplementedError(

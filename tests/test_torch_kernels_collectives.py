@@ -257,7 +257,8 @@ def test_ring_neighbors():
      "do not split into 4 blocks"),
     (lambda x: ops.fused_allgather_matmul(x, x), NotImplementedError,
      "item 9"),
-    (lambda x: ops.flash_attention(x, x, x), NotImplementedError, "item 8"),
+    (lambda x: ops.flash_attention(x[None], x[None], x[None]), ValueError,
+     "length 8 does not divide into block_q=128"),
     (lambda x: ops.all_reduce(x, backend="triton"), ValueError,
      "unknown backend"),
     (lambda x: ops.all_gather(x[0]), ValueError, "2D"),
