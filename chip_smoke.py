@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 1,2,3 # device, build, kernel checks only
     python3 chip_smoke.py --phases 1,2,9 # build, then the MoE slice
     python3 chip_smoke.py --phases 1,2,10 # build, then the prefill slice
+    python3 chip_smoke.py --phases 1,2,11 # build, then 2PH and AllGather-matmul
 
 Phases, each printing one JSON line (any failure raises, exit != 0):
 
@@ -77,14 +78,41 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    qwen3-1.7b's fused prefill against the engine's token by token (8 x
    128 tokens; bf16 within 0.05, f32 at 4 layers within 1e-4 with equal
    argmax); and the kernel's device time at each main-path shape beside
-   its bound, its plain version and ``scaled_dot_product_attention``.
+   its bound, its plain version and ``scaled_dot_product_attention``;
+11. hierarchical 2PH and AllGather-matmul — the 2PH AllReduce kernel
+   (``csrc/allreduce_2ph.cu``) bit-equal to its plain version over
+   (nodes, local) in {(2, 2), (2, 4), (4, 4)} x rows a chunk in {1, 8,
+   37} x cols in {1, 128, 2048} x f32/bf16, and two calls back to back;
+   the AllGather-matmul kernel (``csrc/collective_matmul.cu``) within a
+   relative L2 error of 1e-5 (f32 out) or 1e-2 (bf16 out) of its plain
+   version over n in {2, 4, 8} x rows in {2, 64, 4096} x K in {128, 2048}
+   x F in {128, 512, 1536} x shared and per-rank w x (bf16 -> f32, bf16
+   -> bf16, f32 -> f32), and two calls in a row; a fault control of each
+   in plain torch, past its gate; on integer payloads at 2 x 4 and 4 x 4,
+   the hierarchical plan replay loaded from its exported JSON, the 2PH
+   kernel, the flat nn*L plan and the plain sum bit-equal; the main path
+   — qwen3-1.7b's whole gradient as the explicit trainer hands it to the
+   hierarchical AllReduce (14 leaves, bf16, 3.78 GiB a rank) on 2 nodes x
+   4 local ranks, through the loaded plan set (3 executor launches a
+   replay) and through ``ops.all_reduce(algo="2ph")`` (one launch a
+   leaf), each within a relative L2 error of 1e-2 of the f64 sum, the
+   plan replay bit-equal to the same plan files on ``TorchExecutor`` and
+   the kernel to its plain version; then the AllGather-matmul at
+   qwen3-1.7b's TP=4 projection shapes (prefill and decode into the
+   w_gate and wq column shards, bf16 in, bf16 and f32 out); and each
+   kernel's device time per leaf or shape beside its bound, its plain
+   version and a one-call PyTorch yardstick, the plan replay's time and
+   the peak device memory.
 
 The last lines are the card's nvidia-smi line, one ``{"kernels": [...]}``
 JSON object, and ``{"ok": true, "device": {...}}``. The whole record
 also goes to ``chiprun_out/chip_smoke.json``.
 The kernels line holds one entry per kernel. The executor's times are
 the launch-weighted mean of both main paths' decode mixes, each path's
-own under ``by_path`` and every shape's under ``per_shape``; flash
+own under ``by_path`` and every shape's under ``per_shape``; its group
+view on phase 11's hierarchical replays is an entry of its own
+(``dsl_executor_group_view``: the replays' times over their launches,
+each leaf's replay under ``per_shape``); flash
 attention's are the mean over the layers of one forward of each phase-10
 model, every shape's under ``per_shape``; the other kernels' per-shape
 times are in the phase lines.
@@ -186,6 +214,26 @@ PREFILL_REL_TOL = 0.05
 FUSED_BATCH, FUSED_TOKENS = 8, 128
 FUSED_F32_LAYERS, FUSED_F32_TOL = 4, 1e-4
 PREFILL_REPEATS = 3
+# phase 11: the hierarchical 2PH AllReduce and the AllGather-matmul
+AR2PH_SOURCE = "src/repro_torch/csrc/allreduce_2ph.cu"
+AR2PH_REPLACES = "src/repro/kernels/allreduce_2ph.py:36"
+AGMM_SOURCE = "src/repro_torch/csrc/collective_matmul.cu"
+AGMM_REPLACES = "src/repro/kernels/collective_matmul.py:41"
+# kernel vs plain grids: 2PH (nodes, local), rows a chunk, cols; the
+# AllGather-matmul's n, rows a rank, K, F
+HIER_GRIDS = ((2, 2), (2, 4), (4, 4))
+HIER_ROWS, HIER_COLS = (1, 8, 37), (1, 128, 2048)
+AGMM_GRID = dict(n=(2, 4, 8), rows=(2, 64, 4096), k=(128, 2048),
+                 f=(128, 512, 1536))
+HIER_NN, HIER_L = 2, 4                  # the main path: the reference's mesh2x4
+# every leaf through the plan and the kernel, against the f64 sum: bf16
+# wire values, each add rounded to bf16 in the fold
+LEAF_REL_TOL = 1e-2
+FAULT_LEAF = "ln_attn"
+# kernel vs plain: the same f32 accumulation in another order (f32 out);
+# and the f32 result rounded to bf16 (bf16 out)
+AGMM_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+AGMM_PREFILL_TOKENS = 8 * 2048          # phase 10's qwen3-1.7b prefill
 
 RECORD: dict = {}
 
@@ -265,6 +313,8 @@ def phase_build():
     build.allgather_ring_library()
     build.alltoall_library()
     build.flash_attention_library()
+    build.allreduce_2ph_library()
+    build.collective_matmul_library()
     ptxas = [ln.strip() for b in build.last_build.values()
              for ln in b["log"].splitlines() if "registers" in ln]
     emit("build", seconds=round(time.perf_counter() - t, 3),
@@ -1609,11 +1659,478 @@ def phase_prefill(device, gen):
     return max(errs.values()), launches, timing
 
 
+# ---------------------------------------------------------------------------
+# phase 11: hierarchical 2PH AllReduce and AllGather-matmul
+# ---------------------------------------------------------------------------
+def _rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| in f64, a rank and 2^26 elements at a
+    time (``want`` broadcasts: one reduced buffer for every rank)."""
+    num = den = 0.0
+    step = 1 << 26
+    for r in range(got.shape[0]):
+        g = got[r].reshape(-1)
+        w = (want[r] if want.dim() == got.dim() else want).reshape(-1)
+        for i in range(0, g.numel(), step):
+            wi = w[i:i + step].double()
+            num += float((g[i:i + step].double() - wi).square().sum())
+            den += float(wi.square().sum())
+    return (num / den) ** 0.5 if den else float(num > 0)
+
+
+def _max_abs_err(got, want) -> float:
+    """max |got - want| in f64, a rank at a time."""
+    return max((got[r].double() - want[r].double()).abs().max().item()
+               for r in range(got.shape[0]))
+
+
+def _2ph_fault(x, nn):
+    """Plain torch: 2PH with the other nodes dropped from rank 0's phase-2
+    fold, so node 0's ranks hold chunk 0 with their own node's sum only
+    (rank 0's phase-1 fold, in its rotated order)."""
+    from repro_torch.kernels.allreduce_2ph import all_reduce_2ph_plain
+    ranks, total, cols = x.shape
+    ln = ranks // nn
+    y = all_reduce_2ph_plain(x, node_size=nn).reshape(
+        ranks, ln, total // ln, cols).clone()
+    xs = x.reshape(ranks, ln, total // ln, cols)
+    acc = xs[0, 0]
+    for i in range(1, ln):
+        acc = acc + xs[i, 0]
+    y[:ln, 0] = acc
+    return y.reshape(ranks, total, cols)
+
+
+def _agmm_fault(x, w, out_dtype):
+    """Plain torch: rank 0 multiplies the chunk of slot 1 into row block
+    0 (a chunk taken from the wrong slot)."""
+    from repro_torch.kernels.collective_matmul import allgather_matmul_plain
+    n, rows, _ = x.shape
+    y = allgather_matmul_plain(x, w, out_dtype=out_dtype).reshape(
+        n, n, rows, w.shape[-1]).clone()
+    w0 = w[0] if w.dim() == 3 else w
+    y[0, 0] = (x[1].float() @ w0.float()).to(out_dtype)
+    return y.reshape(n, n * rows, w.shape[-1])
+
+
+def _2ph_vs_plain(gen, device):
+    """The 2PH kernel against its plain version, bit-equal, over the grid
+    (and two calls back to back against the plain version twice), and
+    the fault control's reading on one case."""
+    from repro_torch.kernels import ops
+    cases, err = 0, 0.0
+    for nn, ln in HIER_GRIDS:
+        for rows in HIER_ROWS:
+            for cols in HIER_COLS:
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = _rand((nn * ln, ln * rows, cols), dtype, gen, device)
+                    y = ops.all_reduce(x, algo="2ph", node_size=nn)
+                    y2 = ops.all_reduce(y, algo="2ph", node_size=nn)
+                    p = ops.all_reduce(x, algo="2ph", node_size=nn,
+                                       backend="torch")
+                    p2 = ops.all_reduce(p, algo="2ph", node_size=nn,
+                                        backend="torch")
+                    torch.cuda.synchronize()
+                    e = (y.double() - p.double()).abs().max().item()
+                    err = max(err, e)
+                    check(torch.equal(y, p) and torch.equal(y2, p2),
+                          f"2PH kernel != plain: {nn}x{ln} rows={rows} "
+                          f"cols={cols} {dtype} (max |err| {e})")
+                    cases += 2
+    x = _rand((8, 4 * 8, 128), torch.float32, gen, device)
+    fault = (_2ph_fault(x, 2).double() - ops.all_reduce(
+        x, algo="2ph", node_size=2).double()).abs().max().item()
+    check(fault > 0, "2PH fault control reads bit-equal")
+    return cases, err, fault
+
+
+def _agmm_vs_plain(gen, device):
+    """The AllGather-matmul kernel against its plain version over the
+    grid, rel. L2 within AGMM_REL_TOL of the output type; two calls in a
+    row (the second on every rank's first row block, K = F); the fault
+    control's reading."""
+    from repro_torch.kernels import ops
+    cases, errs, rels = 0, {}, {}
+
+    def held(x, w, odt, what):
+        nonlocal cases
+        y = ops.fused_allgather_matmul(x, w, out_dtype=odt)
+        p = ops.fused_allgather_matmul(x, w, out_dtype=odt, backend="torch")
+        torch.cuda.synchronize()
+        key = f"{str(x.dtype)[6:]}->{str(odt)[6:]}"
+        rel = _rel_l2(y, p)
+        errs[key] = max(errs.get(key, 0.0),
+                        (y.double() - p.double()).abs().max().item())
+        rels[key] = max(rels.get(key, 0.0), rel)
+        check(y.shape == p.shape and y.dtype == p.dtype
+              and rel <= AGMM_REL_TOL[odt],
+              f"AllGather-matmul kernel vs plain: {what} {key} rel. L2 "
+              f"{rel} > {AGMM_REL_TOL[odt]}")
+        cases += 1
+        return y, p
+
+    pairs = ((torch.bfloat16, torch.float32),
+             (torch.bfloat16, torch.bfloat16),
+             (torch.float32, torch.float32))
+    for n in AGMM_GRID["n"]:
+        for rows in AGMM_GRID["rows"]:
+            for k in AGMM_GRID["k"]:
+                for f in AGMM_GRID["f"]:
+                    for per_rank in (False, True):
+                        for dt, odt in pairs:
+                            x = _rand((n, rows, k), dt, gen, device)
+                            w = _rand(((n,) if per_rank else ()) + (k, f),
+                                      dt, gen, device)
+                            held(x, w, odt, f"n={n} rows={rows} K={k} F={f} "
+                                 f"per_rank={per_rank}")
+                            del x, w
+        torch.cuda.empty_cache()
+    for n in AGMM_GRID["n"]:
+        for rows in AGMM_GRID["rows"][:2]:
+            for per_rank in (False, True):
+                for dt in (torch.bfloat16, torch.float32):
+                    x = _rand((n, rows, 128), dt, gen, device)
+                    w = _rand(((n,) if per_rank else ()) + (128, 128), dt,
+                              gen, device)
+                    y1, p1 = held(x, w, dt, f"twice, first n={n}")
+                    held(y1[:, :rows].contiguous(), w, dt,
+                         f"twice, second n={n}")
+    x = _rand((4, 64, 2048), torch.bfloat16, gen, device)
+    w = _rand((4, 2048, 512), torch.bfloat16, gen, device)
+    p = ops.fused_allgather_matmul(x, w, backend="torch")
+    fault = _rel_l2(_agmm_fault(x, w, torch.bfloat16), p)
+    check(fault > AGMM_REL_TOL[torch.bfloat16],
+          f"AllGather-matmul fault control reads {fault} inside the gate")
+    return cases, errs, rels, fault
+
+
+def _hier_exact(device, tmp):
+    """Integer-valued f32: the hierarchical plan replay loaded from its
+    exported JSON, the 2PH kernel, the flat nn*L plan and the plain sum,
+    bit-equal at 2 x 4 and 4 x 4."""
+    from repro_torch.core.comm import (Communicator, HierarchicalCommunicator,
+                                       export_plan_set, load_plan_set)
+    from repro_torch.core.executor import CudaExecutor
+    from repro_torch.kernels import ops
+    out = []
+    for nn, ln in ((2, 4), (4, 4)):
+        planner = HierarchicalCommunicator("local", "node", local_n=ln,
+                                           node_n=nn, device=device,
+                                           backend="torch")
+        shapes = {f"r{ln * r}c{c}": (ln * r, c) for r, c in ((8, 128),
+                                                             (37, 2048))}
+        path = tmp / f"exact{nn}x{ln}"
+        export_plan_set({k: planner.compile(s, torch.float32)
+                         for k, s in shapes.items()}, path)
+        loaded = load_plan_set(path, device=device)
+        flat = Communicator("x", n=nn * ln, device=device)
+        for name, (rows, cols) in shapes.items():
+            g = torch.Generator(device=device).manual_seed(rows * cols)
+            x = torch.randint(-8, 8, (nn * ln, rows, cols), generator=g,
+                              device=device).float()
+            c0 = CudaExecutor.launches
+            hier = loaded[name](x)
+            launches = CudaExecutor.launches - c0
+            kern = ops.all_reduce(x, algo="2ph", node_size=nn)
+            fl = flat.compile("all_reduce", (rows, cols), torch.float32)(x)
+            want = x.sum(0, keepdim=True).expand_as(x)
+            torch.cuda.synchronize()
+            check(launches == 3, f"hierarchical replay took {launches} "
+                  f"launches, not 3")
+            check(torch.equal(hier, want) and torch.equal(kern, want)
+                  and torch.equal(fl, want),
+                  f"{nn}x{ln} {name}: plan, kernel, flat and sum differ")
+            out.append(dict(grid=f"{nn}x{ln}", rows=rows, cols=cols,
+                            algo=loaded[name].algo, flat_algo=flat.compile(
+                                "all_reduce", (rows, cols),
+                                torch.float32).algo, bit_equal=True))
+    return out
+
+
+def _grad_leaves():
+    """qwen3-1.7b's gradient as the explicit trainer hands it to
+    hierarchical_all_reduce: every leaf reshaped to (-1, last), a 1-D
+    leaf to (-1, 1), in the bf16 wire type."""
+    from repro_torch import configs
+    cfg = configs.get_config(ARCH)
+    d, nl, hd = cfg.d_model, cfg.n_layers, cfg.head_dim
+    return {"embed": (cfg.vocab, d), "unembed": (d, cfg.vocab),
+            "ln_f": (d, 1), "ln_attn": (nl, d), "ln_mlp": (nl, d),
+            "wq": (nl * d * cfg.n_heads, hd),
+            "wk": (nl * d * cfg.n_kv_heads, hd),
+            "wv": (nl * d * cfg.n_kv_heads, hd),
+            "wo": (nl * cfg.n_heads * hd, d), "q_norm": (nl, hd),
+            "k_norm": (nl, hd), "w_gate": (nl * d, cfg.d_ff),
+            "w_up": (nl * d, cfg.d_ff), "w_down": (nl * cfg.d_ff, d)}
+
+
+def _leaf(name, shape, device):
+    """A leaf's seeded bf16 payload on every rank of the grid."""
+    g = torch.Generator(device=device).manual_seed(
+        sorted(_grad_leaves()).index(name))
+    return torch.randn((HIER_NN * HIER_L,) + shape, generator=g,
+                       device=device).to(torch.bfloat16)
+
+
+def _f64_sum(x):
+    s = x[0].double()
+    for r in range(1, x.shape[0]):
+        s += x[r]
+    return s
+
+
+def _agmm_main_shapes():
+    """(label, n, rows a rank, K, F) of qwen3-1.7b's TP=4 projections:
+    prefill (8 x 2048 tokens, sequence-sharded) and decode (batch 8) into
+    the column shards of w_gate and wq."""
+    from repro_torch import configs
+    cfg = configs.get_config(ARCH)
+    f_gate, f_q = cfg.d_ff // TP, cfg.n_heads * cfg.head_dim // TP
+    pre, dec = AGMM_PREFILL_TOKENS // TP, BATCH // TP
+    return [("prefill_w_gate", TP, pre, cfg.d_model, f_gate),
+            ("prefill_wq", TP, pre, cfg.d_model, f_q),
+            ("decode_w_gate", TP, dec, cfg.d_model, f_gate),
+            ("decode_wq", TP, dec, cfg.d_model, f_q)]
+
+
+def _hier_main_path(device, tmp):
+    """The slice's main path with the launch counts set to 0 just before
+    and read just after: the 14 gradient leaves through their loaded plan
+    sets (three executor launches a replay) and through ops.all_reduce
+    (algo '2ph', one launch each), then the AllGather-matmul at its four
+    main shapes in both output types. Every output is checked here: each
+    leaf's plan replay bit-equal to the same plan file replayed by the
+    plain executor (the same groups and stride), the kernel bit-equal to
+    its plain version, both within LEAF_REL_TOL of the f64 sum.
+
+    The plans are compiled on the plain backend (no device state) and
+    exported one leaf to a plan set, as a planner ships them; each set is
+    loaded, which allocates its executors' scratch, just before its leaf
+    runs and dropped after: all 14 at once would hold about 49 GB."""
+    from repro_torch.core.comm import (HierarchicalCommunicator,
+                                       export_plan_set, load_plan_set)
+    from repro_torch.core.executor import CudaExecutor
+    from repro_torch.kernels import comm_utils, ops
+    leaves = _grad_leaves()
+    planner = HierarchicalCommunicator("local", "node", local_n=HIER_L,
+                                       node_n=HIER_NN, device=device,
+                                       backend="torch")
+    for k, shape in leaves.items():
+        export_plan_set({k: planner.compile(shape, torch.bfloat16)},
+                        tmp / "grad_plans" / k)
+    mm_inputs = {}
+    for label, n, rows, k, f in _agmm_main_shapes():
+        g = torch.Generator(device=device).manual_seed(rows * f)
+        mm_inputs[label] = (
+            torch.randn((n, rows, k), generator=g, device=device).to(
+                torch.bfloat16),
+            (torch.randn((n, k, f), generator=g, device=device)
+             / k ** 0.5).to(torch.bfloat16))
+    recs, mm_recs = [], []
+    torch.cuda.synchronize()
+    CudaExecutor.launches = 0                   # just before the main path
+    comm_utils.LAUNCHES.clear()
+    for name, shape in leaves.items():
+        plan = load_plan_set(tmp / "grad_plans" / name, device=device)[name]
+        x = _leaf(name, shape, device)
+        y_plan = plan(x)
+        y_kern = ops.all_reduce(x, algo="2ph", node_size=HIER_NN)
+        torch.cuda.synchronize()
+        # checks (no kernel launches: the plain version and f64 sums)
+        want = _f64_sum(x)
+        rec = dict(leaf=name, rows=shape[0], cols=shape[1],
+                   rank_bytes=x[0].numel() * x.element_size(),
+                   algo=plan.algo, pad=plan.pad,
+                   plan_rel_l2=_rel_l2(y_plan, want),
+                   kernel_rel_l2=_rel_l2(y_kern, want))
+        del plan
+        torch.cuda.empty_cache()
+        y_torch = load_plan_set(tmp / "grad_plans" / name, device=device,
+                                backend="torch")[name](x)
+        rec["plan_max_abs_err_plain"] = _max_abs_err(y_plan, y_torch)
+        rec["plan_bit_equal_plain"] = torch.equal(y_plan, y_torch)
+        del y_plan, y_torch
+        torch.cuda.empty_cache()
+        rec["kernel_bit_equal_plain"] = torch.equal(
+            y_kern, ops.all_reduce(x, algo="2ph", node_size=HIER_NN,
+                                   backend="torch"))
+        if name == FAULT_LEAF:
+            rec["fault_rel_l2"] = _rel_l2(_2ph_fault(x, HIER_NN), want)
+        check(rec["kernel_bit_equal_plain"],
+              f"2PH kernel != plain on leaf {name}")
+        check(rec["plan_bit_equal_plain"],
+              f"hierarchical plan replay != plain executor on leaf {name} "
+              f"(max |err| {rec['plan_max_abs_err_plain']})")
+        check(rec["plan_rel_l2"] <= LEAF_REL_TOL
+              and rec["kernel_rel_l2"] <= LEAF_REL_TOL,
+              f"leaf {name}: rel. L2 to the f64 sum {rec}")
+        recs.append(rec)
+        del x, y_kern, want
+        torch.cuda.empty_cache()
+    for label, n, rows, k, f in _agmm_main_shapes():
+        x, w = mm_inputs[label]
+        for odt in (torch.bfloat16, torch.float32):
+            y = ops.fused_allgather_matmul(x, w, out_dtype=odt)
+            p = ops.fused_allgather_matmul(x, w, out_dtype=odt,
+                                           backend="torch")
+            rel = _rel_l2(y, p)
+            mm_recs.append(dict(shape=label, out=str(odt)[6:], rel_l2=rel,
+                                max_abs_err=(y.double() - p.double()).abs()
+                                .max().item()))
+            check(bool(torch.isfinite(y.float()).all())
+                  and rel <= AGMM_REL_TOL[odt],
+                  f"AllGather-matmul {label} {odt}: rel. L2 {rel}")
+    torch.cuda.synchronize()
+    launches = dict(comm_utils.LAUNCHES)        # read just after
+    executor = CudaExecutor.launches
+    expect = {"all_reduce_2ph": len(leaves),
+              "allgather_matmul": 2 * len(mm_inputs)}
+    check(launches == expect, f"main-path launches {launches} != {expect}")
+    check(executor == 3 * len(leaves),
+          f"{executor} executor launches for {len(leaves)} hierarchical "
+          f"replays, not 3 each")
+    fault = next(r["fault_rel_l2"] for r in recs if "fault_rel_l2" in r)
+    check(fault > LEAF_REL_TOL, f"2PH fault control reads {fault}")
+    return recs, mm_recs, dict(launches, executor=executor)
+
+
+def _hier_time(device, tmp):
+    """Per gradient leaf: the 2PH kernel's device time and wall time, the
+    plan replay's (three executor launches) and the same plan's on the
+    plain executor, the plain 2PH version's and the yardstick's (x.sum(0)
+    expanded, which the port never calls), beside the bound: every
+    rank's input read once and output written once over HBM."""
+    from repro_torch.core.comm import load_plan_set
+    from repro_torch.kernels import comm_utils, ops
+    rows_out = []
+    for name, shape in _grad_leaves().items():
+        x = _leaf(name, shape, device)
+        plan = load_plan_set(tmp / "grad_plans" / name, device=device)[name]
+        nbytes = 2 * x.numel() * x.element_size()
+        iters = max(2, min(50, int(2e9 // nbytes)))
+
+        def kern(x=x):
+            return ops.all_reduce(x, algo="2ph", node_size=HIER_NN)
+
+        def plain(x=x):
+            return ops.all_reduce(x, algo="2ph", node_size=HIER_NN,
+                                  backend="torch")
+
+        def lib(x=x):
+            return x.sum(0, keepdim=True).expand_as(x).contiguous()
+
+        k_ms, k_cov = device_ms(kern, iters)
+        k_wall = wall_ms(kern, iters)
+        r_ms, r_cov = device_ms(lambda: plan(x), max(1, iters // 4))
+        del plan
+        torch.cuda.empty_cache()
+        plan = load_plan_set(tmp / "grad_plans" / name, device=device,
+                             backend="torch")[name]
+        rp_ms, rp_cov = device_ms(lambda: plan(x), max(1, iters // 4))
+        del plan
+        torch.cuda.empty_cache()
+        p_ms, p_cov = device_ms(plain, max(1, iters // 4))
+        l_ms, l_cov = device_ms(lib, iters)
+        rows_out.append(dict(
+            leaf=name, rows=shape[0], cols=shape[1], ranks=x.shape[0],
+            rank_bytes=x[0].numel() * x.element_size(),
+            blocks_per_rank=comm_utils.workspace(
+                f"all_reduce_2ph/nodes{HIER_NN}", x).blocks,
+            ms=k_ms, ms_wall=k_wall, plan_ms=r_ms, plan_plain_ms=rp_ms,
+            plain_ms=p_ms, library_ms=l_ms,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
+            sleep_covered=dict(kernel=k_cov, plan=r_cov, plan_plain=rp_cov,
+                               plain=p_cov, library=l_cov)))
+        del x
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def _agmm_time(device, gen):
+    """Per main shape and output type: the AllGather-matmul kernel's
+    device and wall time, the plain version's, and the yardstick's (one
+    torch.matmul of the gathered rows by every rank's w, bf16 out, which
+    the port never calls), beside the bound: the larger of 2 n (n rows) K
+    F FLOP over the bf16 peak and x, w, out bytes over HBM."""
+    from repro_torch.kernels import ops
+    rows_out = []
+    for label, n, rows, k, f in _agmm_main_shapes():
+        x = _rand((n, rows, k), torch.bfloat16, gen, device)
+        w = _rand((n, k, f), torch.bfloat16, gen, device)
+
+        def lib(x=x, w=w):
+            return torch.matmul(x.reshape(1, n * rows, k), w)
+
+        l_ms, l_cov = device_ms(lib, 20)
+        for odt in (torch.bfloat16, torch.float32):
+            def kern(x=x, w=w, odt=odt):
+                return ops.fused_allgather_matmul(x, w, out_dtype=odt)
+
+            def plain(x=x, w=w, odt=odt):
+                return ops.fused_allgather_matmul(x, w, out_dtype=odt,
+                                                  backend="torch")
+
+            k_ms, k_cov = device_ms(kern, 20)
+            k_wall = wall_ms(kern, 20)
+            p_ms, p_cov = device_ms(plain, 5)
+            flops = 2 * n * (n * rows) * k * f
+            out_bytes = n * n * rows * f * (4 if odt == torch.float32 else 2)
+            nbytes = (x.numel() + w.numel()) * 2 + out_bytes
+            t_ops = flops / BF16_FLOPS_PER_S
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            rows_out.append(dict(
+                shape=label, n=n, rows=rows, K=k, F=f, out=str(odt)[6:],
+                ms=k_ms, ms_wall=k_wall, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=max(t_ops, t_bytes) * 1e3, ops_ms=t_ops * 1e3,
+                bytes_ms=t_bytes * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, bytes=nbytes, tflops_per_s=flops / k_ms / 1e9,
+                sleep_covered=dict(kernel=k_cov, plain=p_cov,
+                                   library=l_cov)))
+        del x, w
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def phase_hierarchical(device, gen):
+    import tempfile
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        tmp = pathlib.Path(d)
+        cases_2ph, err_2ph, fault_2ph_grid = _2ph_vs_plain(gen, device)
+        cases_mm, errs_mm, rels_mm, fault_mm = _agmm_vs_plain(gen, device)
+        exact = _hier_exact(device, tmp)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        leaves, mm_main, launches = _hier_main_path(device, tmp)
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        hier_timing = _hier_time(device, tmp)
+        mm_timing = _agmm_time(device, gen)
+    total = {k: sum(r[k] for r in hier_timing)
+             for k in ("ms", "ms_wall", "plan_ms", "plan_plain_ms",
+                       "plain_ms", "library_ms", "bound_ms")}
+    emit("hierarchical", grid=f"{HIER_NN}x{HIER_L}", cases_2ph=cases_2ph,
+         max_abs_err_2ph=err_2ph, fault_2ph_grid_max_abs_err=fault_2ph_grid,
+         cases_agmm=cases_mm, max_abs_err_agmm=errs_mm,
+         max_rel_l2_agmm=rels_mm, fault_agmm_rel_l2=fault_mm,
+         agmm_rel_tol={str(k)[6:]: v for k, v in AGMM_REL_TOL.items()},
+         leaf_rel_tol=LEAF_REL_TOL, exact=exact, leaves=leaves,
+         agmm_main=mm_main, launches=launches, peak_gb_main_path=peak_gb,
+         gradient_total=total, leaf_shapes=hier_timing,
+         agmm_shapes=mm_timing, seconds=round(time.perf_counter() - t, 3))
+    return dict(err_2ph=err_2ph, errs_mm=errs_mm, mm_main=mm_main,
+                launches=launches, hier_timing=hier_timing,
+                mm_timing=mm_timing,
+                err_plan=max(r["plan_max_abs_err_plain"] for r in leaves))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11",
                     help="comma-separated phases to run (default 1-6 and "
-                         "8-10; 7 profiles a decode step)")
+                         "8-11; 7 profiles a decode step)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -1632,7 +2149,7 @@ def main(argv=None) -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
-    max_err, launches, timing, coll, moe, prefill = (None,) * 6
+    max_err, launches, timing, coll, moe, prefill, hier = (None,) * 7
     if 2 in phases:
         phase_build()
     if 3 in phases:
@@ -1651,6 +2168,8 @@ def main(argv=None) -> int:
         moe = phase_moe(device, gen)
     if 10 in phases:
         prefill = phase_prefill(device, gen)
+    if 11 in phases:
+        hier = phase_hierarchical(device, gen)
     kernels = []
     if timing is not None:
         # each main path's per-step launch mix at full occupancy (every
@@ -1689,6 +2208,29 @@ def main(argv=None) -> int:
             **{k: sum(by_path[a][k] * w for a, w in weight.items())
                / sum(weight.values()) for k in keys},
             bound_by="bytes", by_path=by_path, per_shape=timing))
+    if hier is not None:
+        # the executor's group view on phase 11's path, apart from the
+        # decode mixes above: 14 hierarchical replays of 3 launches each.
+        # Times are the replays' sums over their launches (the plain
+        # executor replaying the same plan files; x.sum(0) expanded), so
+        # launches x ms is the path's executor time; ``per_shape`` keeps
+        # each leaf's whole replay
+        ht = hier["hier_timing"]
+        n_hier = hier["launches"]["executor"]
+        kernels.append(dict(
+            name="dsl_executor_group_view", route="cuda",
+            source=KERNEL_SOURCE, replaces=REPLACES, launches=n_hier,
+            max_abs_err=hier["err_plan"],
+            **{k: sum(r[src] for r in ht) / n_hier
+               for k, src in (("ms", "plan_ms"), ("plain_ms", "plan_plain_ms"),
+                              ("bound_ms", "bound_ms"),
+                              ("library_ms", "library_ms"))},
+            bound_by="bytes", grid=f"{HIER_NN}x{HIER_L}",
+            launches_per_replay=n_hier // len(ht),
+            per_shape=[dict(leaf=r["leaf"], replay_ms=r["plan_ms"],
+                            plain_replay_ms=r["plan_plain_ms"],
+                            bound_ms=r["bound_ms"],
+                            library_ms=r["library_ms"]) for r in ht]))
     if coll is not None:
         # the decode-size row of each kernel: the 1PA LL decode AllReduce,
         # the two halves of the decode AllReduce through 2PA, and the
@@ -1734,6 +2276,28 @@ def main(argv=None) -> int:
                                     "library_ms")},
             bound_by="operations" if mean["ops_ms"] >= mean["bytes_ms"]
             else "bytes", per_shape=fa_timing))
+    if hier is not None:
+        # launch-weighted over the main path: one 2PH launch per gradient
+        # leaf, one AllGather-matmul launch per shape and output type
+        keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+        ht, mt = hier["hier_timing"], hier["mm_timing"]
+        kernels.append(dict(
+            name="all_reduce_2ph", route="cuda", source=AR2PH_SOURCE,
+            replaces=AR2PH_REPLACES,
+            launches=hier["launches"]["all_reduce_2ph"],
+            max_abs_err=hier["err_2ph"],
+            **{k: sum(r[k] for r in ht) / len(ht) for k in keys},
+            bound_by="bytes", per_shape=ht))
+        mean = {k: sum(r[k] for r in mt) / len(mt)
+                for k in keys + ("ops_ms", "bytes_ms")}
+        kernels.append(dict(
+            name="allgather_matmul", route="cuda", source=AGMM_SOURCE,
+            replaces=AGMM_REPLACES,
+            launches=hier["launches"]["allgather_matmul"],
+            max_abs_err=max(r["max_abs_err"] for r in hier["mm_main"]),
+            **{k: mean[k] for k in keys},
+            bound_by="operations" if mean["ops_ms"] >= mean["bytes_ms"]
+            else "bytes", per_shape=mt))
     emit("total", seconds=time.perf_counter() - t0)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -13,9 +13,20 @@
   dispatch (``"rows"`` for all_reduce/broadcast, ``"tiled"`` for
   all_gather, ``"blocks"`` for all_to_all/reduce_scatter, whose buckets
   count rows per per-rank block — the MoE capacity buckets).
+* :class:`HierarchicalCommunicator` / :class:`HierarchicalPlan` — the
+  2PH AllReduce over a node × local rank grid (paper §4.4-2PH): three
+  per-axis plans RS(local) → AR(node) → AG(local), or one flat plan when
+  there is one node.
 
 A plan takes and returns rank-stacked tensors: ``x`` is ``(n, rows,
-cols)`` and ``x[r]`` is rank ``r``'s payload.
+cols)`` and ``x[r]`` is rank ``r``'s payload. A plan compiled with
+``groups``/``stride`` runs over ``groups`` groups of ``n`` ranks of a
+``(groups * n, rows, cols)`` tensor (the group view of
+:mod:`~.executor`); a hierarchical plan takes the grid node-major,
+``(nn * L, rows, cols)`` with rank ``node * L + local``
+(:mod:`repro_torch.mesh`): its local phases run ``nn`` groups of L
+contiguous ranks, its node phase L groups of nn ranks at stride L, one
+kernel launch each.
 
 Backends: ``"torch"`` is the plain version (:class:`~.executor.
 TorchExecutor`) on any device; ``"cuda"`` is the hand-written kernel
@@ -42,11 +53,13 @@ from repro_torch.core import selector as sel
 from repro_torch.core import verify as verify_mod
 from repro_torch.core.dsl import Program, program_from_dict, program_to_dict
 from repro_torch.core.executor import CudaExecutor, TorchExecutor
-from repro_torch.mesh import DeviceLike, resolve_device
+from repro_torch.mesh import DeviceLike, RankGrid, resolve_device
 
 __all__ = ["Communicator", "ExecutionPlan", "BucketedPlan",
-           "default_backend", "plan_from_json", "export_plan_set",
-           "load_plan_set", "PLAN_FORMAT_VERSION", "BACKENDS"]
+           "HierarchicalPlan", "HierarchicalCommunicator",
+           "hierarchical_all_reduce", "default_backend", "plan_from_json",
+           "export_plan_set", "load_plan_set", "PLAN_FORMAT_VERSION",
+           "BACKENDS"]
 
 PLAN_FORMAT_VERSION = 1
 BACKENDS = ("torch", "cuda")
@@ -111,16 +124,19 @@ def _field(d: dict, key: str, what: str):
 
 
 def _build_executor(program: Program, backend: str, opt_level: int, n: int,
-                    shape: Tuple[int, int], dtype: str, device: torch.device):
+                    shape: Tuple[int, int], dtype: str, device: torch.device,
+                    groups: int = 1):
     """The prepared executor; the kernel's device state (instruction
-    table, flags, scratch) is allocated here, at plan-build time."""
+    table, flags, scratch — for ``groups`` groups of ``n`` ranks) is
+    allocated here, at plan-build time."""
     if backend == "cuda":
         if device.type != "cuda":
             raise ValueError(f"backend 'cuda' needs a CUDA device, got "
                              f"{device}; use backend='torch' on the CPU")
         n_in = program.chunks[program.in_buffer]
         return CudaExecutor(program).prepare(n).bind(
-            shape[0] // n_in, shape[1], _DTYPES[dtype], device)
+            shape[0] // n_in, shape[1], _DTYPES[dtype], device,
+            groups=groups)
     if backend == "torch":
         return TorchExecutor(program, vectorize=opt_level > 0).prepare(n)
     raise ValueError(f"unknown backend {backend!r}; expected one of "
@@ -131,7 +147,11 @@ def _build_executor(program: Program, backend: str, opt_level: int, n: int,
 class ExecutionPlan:
     """A compiled, frozen, executable collective. ``shape`` is one
     rank's ``(rows, cols)`` payload; ``pad`` rows are appended before
-    execution and sliced off after (paddable collectives only)."""
+    execution and sliced off after (paddable collectives only).
+    ``groups``/``stride`` are the replay geometry: the plan runs over
+    ``groups`` groups of ``n`` ranks of a ``(groups * n, rows, cols)``
+    payload (:func:`repro_torch.mesh.group_ranks`); they are not part of
+    the plan file, whose reader chooses them."""
 
     collective: str
     algo: str
@@ -150,19 +170,22 @@ class ExecutionPlan:
     program: Program
     executor: Any
     device: torch.device
+    groups: int = 1
+    stride: int = 1
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        """Replay on a rank-stacked ``(n, rows, cols)`` payload: no
-        selection, no passes, no executor preparation."""
-        if tuple(x.shape) != (self.n,) + tuple(self.shape):
-            raise ValueError(f"plan compiled for ({self.n},) + {self.shape}, "
+        """Replay on a rank-stacked ``(groups * n, rows, cols)`` payload:
+        no selection, no passes, no executor preparation."""
+        ranks = self.groups * self.n
+        if tuple(x.shape) != (ranks,) + tuple(self.shape):
+            raise ValueError(f"plan compiled for ({ranks},) + {self.shape}, "
                              f"got {tuple(x.shape)}")
         if x.dtype != _DTYPES[self.dtype]:
             raise ValueError(f"plan compiled for dtype {self.dtype}, got "
                              f"{x.dtype}")
         if self.pad:
             x = F.pad(x, (0, 0, 0, self.pad))
-        out = self.executor(x)
+        out = self.executor(x, groups=self.groups, stride=self.stride)
         if self.pad:
             out = out[:, : self.shape[0]]
         return out
@@ -204,11 +227,12 @@ class ExecutionPlan:
 
     @classmethod
     def from_dict(cls, d: dict, *, device: DeviceLike = None,
-                  backend: Optional[str] = None,
-                  verify: str = "strict") -> "ExecutionPlan":
+                  backend: Optional[str] = None, verify: str = "strict",
+                  groups: int = 1, stride: int = 1) -> "ExecutionPlan":
         """Rebuild a plan: the program is reconstructed, verified, and
         prepared for ``device`` with ``backend`` (default: the device's
-        backend — the file's own backend is not used)."""
+        backend — the file's own backend is not used), to replay over
+        ``groups`` groups at ``stride``."""
         _check_version(d, "ExecutionPlan")
         if d.get("kind") == "bucketed_plan":
             raise ValueError("bucketed plan payload; use "
@@ -229,7 +253,8 @@ class ExecutionPlan:
         dtype = _dtype_name(req("dtype"))
         pad = req("pad")
         executor = _build_executor(program, backend, req("opt_level"), n,
-                                   (shape[0] + pad, shape[1]), dtype, device)
+                                   (shape[0] + pad, shape[1]), dtype, device,
+                                   groups=groups)
         return cls(
             collective=collective, algo=req("algo"), axis=req("axis"), n=n,
             shape=shape, dtype=dtype, backend=backend,
@@ -237,7 +262,7 @@ class ExecutionPlan:
             requested_opt_level=req("requested_opt_level"), root=root,
             pad=pad, link=link, estimate_us=req("estimate_us"),
             comm_stats=dict(req("comm_stats")), program=program,
-            executor=executor, device=device)
+            executor=executor, device=device, groups=groups, stride=stride)
 
     @classmethod
     def from_json(cls, s: str, **kw) -> "ExecutionPlan":
@@ -401,27 +426,35 @@ class Communicator:
     def compile(self, collective: str, shape, dtype, *,
                 algo: Optional[str] = None, backend: Optional[str] = None,
                 opt_level: Optional[int] = None, root: int = 0,
-                link: Optional[sel.LinkModel] = None) -> ExecutionPlan:
+                link: Optional[sel.LinkModel] = None, groups: int = 1,
+                stride: int = 1) -> ExecutionPlan:
         """Compile (or fetch from cache) the plan for one collective on a
-        per-rank ``(rows, cols)`` payload of ``dtype``."""
+        per-rank ``(rows, cols)`` payload of ``dtype``, replayed over
+        ``groups`` groups of ``n`` ranks at ``stride`` (default: the
+        axis alone)."""
         backend = backend or self.backend
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of "
                              f"{BACKENDS}")
         if collective not in COLLECTIVES:
             raise ValueError(f"unknown collective {collective!r}")
+        if groups < 1 or stride < 1 or groups % stride:
+            raise ValueError(f"{groups} groups at stride {stride}: the group "
+                             f"count must be a positive multiple of the "
+                             f"stride")
         link = link or self.link
         level_req = self._level(opt_level)
         rows, cols = int(shape[0]), int(shape[1])
         dtype = _dtype_name(dtype)
         key = (collective, (rows, cols), dtype, self.n, backend, algo,
-               level_req, link, root if collective == "broadcast" else None)
+               level_req, link, root if collective == "broadcast" else None,
+               groups, stride)
         plan = self._plans.get(key)
         if plan is not None:
             self.stats["hits"] += 1
             return plan
         plan = self._build(collective, rows, cols, dtype, backend, algo,
-                           level_req, root, link)
+                           level_req, root, link, groups, stride)
         self._plans[key] = plan
         self.stats["compiles"] += 1
         return plan
@@ -478,7 +511,7 @@ class Communicator:
         return bucketed
 
     def _build(self, collective, rows, cols, dtype, backend, algo,
-               level_req, root, link) -> ExecutionPlan:
+               level_req, root, link, groups=1, stride=1) -> ExecutionPlan:
         n = self.n
         itemsize = _DTYPES[dtype].itemsize
         nbytes = rows * cols * itemsize
@@ -542,26 +575,67 @@ class Communicator:
             stats["comm_rounds"] + stats["barriers"], stats[bytes_key],
             extra_syncs=max(0, stats["sync_steps"] - stats["comm_rounds"]))
         executor = _build_executor(prog, backend, level, n,
-                                   (rows + pad, cols), dtype, self.device)
+                                   (rows + pad, cols), dtype, self.device,
+                                   groups=groups)
         return ExecutionPlan(
             collective=collective, algo=name, axis=self.axis, n=n,
             shape=(rows, cols), dtype=dtype, backend=backend,
             opt_level=level, requested_opt_level=level_req,
             root=root if collective == "broadcast" else None, pad=pad,
             link=link, estimate_us=est, comm_stats=stats, program=prog,
-            executor=executor, device=self.device)
+            executor=executor, device=self.device, groups=groups,
+            stride=stride)
+
+    # -- collectives on rank-stacked tensors -------------------------------
+    # Each compiles the plan for x's shape at the first call and hits the
+    # cache after.
+    def _collective(self, collective, x, **kw) -> torch.Tensor:
+        return self.compile(collective, tuple(x.shape[1:]), x.dtype, **kw)(x)
+
+    def all_reduce(self, x: torch.Tensor, *, backend: Optional[str] = None,
+                   algo: Optional[str] = None,
+                   link: Optional[sel.LinkModel] = None,
+                   opt_level: Optional[int] = None) -> torch.Tensor:
+        """x: ``(n, rows, cols)`` -> the same shape, summed over the
+        axis."""
+        return self._collective("all_reduce", x, backend=backend, algo=algo,
+                                link=link, opt_level=opt_level)
+
+    def all_gather(self, x: torch.Tensor, *, backend: Optional[str] = None,
+                   algo: Optional[str] = None,
+                   link: Optional[sel.LinkModel] = None,
+                   opt_level: Optional[int] = None) -> torch.Tensor:
+        """x: ``(n, rows, cols)`` shards -> ``(n, n*rows, cols)``, every
+        rank holding all shards in rank order."""
+        return self._collective("all_gather", x, backend=backend, algo=algo,
+                                link=link, opt_level=opt_level)
+
+    def reduce_scatter(self, x: torch.Tensor, *,
+                       backend: Optional[str] = None,
+                       algo: Optional[str] = None,
+                       link: Optional[sel.LinkModel] = None,
+                       opt_level: Optional[int] = None) -> torch.Tensor:
+        """x: ``(n, n*rows, cols)`` -> ``(n, rows, cols)``: rank ``r``'s
+        reduced row block ``r``."""
+        return self._collective("reduce_scatter", x, backend=backend,
+                                algo=algo, link=link, opt_level=opt_level)
+
+    def broadcast(self, x: torch.Tensor, root: int = 0, *,
+                  backend: Optional[str] = None,
+                  link: Optional[sel.LinkModel] = None,
+                  opt_level: Optional[int] = None) -> torch.Tensor:
+        """x: ``(n, rows, cols)`` -> root's buffer on every rank."""
+        return self._collective("broadcast", x, root=root, backend=backend,
+                                link=link, opt_level=opt_level)
 
     def all_to_all(self, x: torch.Tensor, *, backend: Optional[str] = None,
                    algo: Optional[str] = None,
                    link: Optional[sel.LinkModel] = None,
                    opt_level: Optional[int] = None) -> torch.Tensor:
         """x: ``(n, n*rows, cols)``, row block ``b`` of rank ``d`` goes
-        to rank ``b``; returns every rank's received blocks stacked.
-        Compiles the plan for this shape at the first call, hits the
-        cache after."""
-        return self.compile("all_to_all", tuple(x.shape[1:]), x.dtype,
-                            algo=algo, backend=backend, opt_level=opt_level,
-                            link=link)(x)
+        to rank ``b``; returns every rank's received blocks stacked."""
+        return self._collective("all_to_all", x, backend=backend, algo=algo,
+                                link=link, opt_level=opt_level)
 
     def _resolve_algo(self, collective, nbytes, algo, link, opt_level):
         cands = sel.CANDIDATES[collective]
@@ -582,17 +656,323 @@ class Communicator:
                 f"plans={len(self._plans)}, stats={self.stats})")
 
 
+def _hierarchical_phases(local: Communicator, node: Communicator, shape,
+                         dtype, *, backend: Optional[str],
+                         opt_level: Optional[int], small_message_bytes: int,
+                         node_link: Optional[sel.LinkModel] = None) -> dict:
+    """The 2PH composition on a node-major grid of ``node.n`` nodes of
+    ``local.n`` ranks: the pad that makes the rows divide L and the three
+    phase plans, each replayed over its axis's groups of the grid
+    (:class:`~repro_torch.mesh.RankGrid`). The cross-node AR uses 1PA for
+    payloads at or under ``small_message_bytes`` (paper §4.4's first 2PH
+    variant), else ``node``'s selector choice on ``node_link`` (default:
+    its own link)."""
+    grid = RankGrid(node.n, local.n)
+    rows, cols = int(shape[0]), int(shape[1])
+    dtype = _dtype_name(dtype)
+    pad = (-rows) % grid.local
+    shard = ((rows + pad) // grid.local, cols)
+    kw = dict(backend=backend, opt_level=opt_level)
+    lgroups, lstride = grid.local_view
+    ngroups, nstride = grid.node_view
+    small = rows * cols * _DTYPES[dtype].itemsize <= small_message_bytes
+    return dict(
+        pad=pad,
+        rs_plan=local.compile("reduce_scatter", (rows + pad, cols), dtype,
+                              groups=lgroups, stride=lstride, **kw),
+        ar_plan=node.compile("all_reduce", shard, dtype, link=node_link,
+                             algo="allreduce_1pa" if small else None,
+                             groups=ngroups, stride=nstride, **kw),
+        ag_plan=local.compile("all_gather", shard, dtype, groups=lgroups,
+                              stride=lstride, **kw))
+
+
+def hierarchical_all_reduce(x: torch.Tensor, *, local: Communicator,
+                            node: Communicator,
+                            backend: Optional[str] = None,
+                            small_message_bytes: int = 1 << 20,
+                            opt_level: Optional[int] = None,
+                            node_link: Optional[sel.LinkModel] = None
+                            ) -> torch.Tensor:
+    """2PH AllReduce (paper §4.4-2PH) over two communicators:
+    RS(local) → AR(node) → AG(local), on a node-major ``(node.n *
+    local.n, rows, cols)`` grid.
+
+    The cross-node phase moves 1/L of the data (L = ``local.n``). For
+    small messages the cross-node hop uses 1PA (the paper's first 2PH
+    variant); for large, whatever ``node``'s selector picks on
+    ``node_link`` (default: the node communicator's own link)."""
+    if x.dim() != 3 or x.shape[0] != local.n * node.n:
+        raise ValueError(f"expected a ({node.n} nodes x {local.n} local, "
+                         f"rows, cols) payload, got {tuple(x.shape)}")
+    phases = _hierarchical_phases(
+        local, node, tuple(x.shape[1:]), x.dtype, backend=backend,
+        opt_level=opt_level, small_message_bytes=small_message_bytes,
+        node_link=node_link)
+    return HierarchicalPlan(shape=tuple(x.shape[1:]),
+                            dtype=_dtype_name(x.dtype), local_axis=local.axis,
+                            node_axis=node.axis, **phases)(x)
+
+
+# ---------------------------------------------------------------------------
+# hierarchical (two-axis) composition — RS(local) → AR(node) → AG(local)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(eq=False, repr=False)
+class HierarchicalPlan:
+    """A frozen two-axis AllReduce: three per-axis :class:`ExecutionPlan`
+    s composed RS(local) → AR(node) → AG(local) (paper §4.4-2PH), or ONE
+    flat plan when the grid has one node.
+
+    It replays on a node-major ``(nn * L, rows, cols)`` payload: the RS
+    and AG phases over nn groups of L contiguous ranks, the AR phase over
+    L groups of nn ranks at stride L, each one launch of the executor
+    kernel on the card. The cross-node phase carries 1/L of the payload.
+    Serializable like the reference's (:meth:`to_json` /
+    :meth:`from_json`, ``kind="hierarchical_plan"``)."""
+
+    shape: Tuple[int, int]
+    dtype: str
+    local_axis: str
+    node_axis: Optional[str]
+    #: rows appended before RS(local) and sliced back off after AG(local)
+    #: so the payload divides the local axis
+    pad: int
+    rs_plan: Optional[ExecutionPlan]
+    ar_plan: Optional[ExecutionPlan]
+    ag_plan: Optional[ExecutionPlan]
+    #: set instead of the three phases on the single-axis fallback
+    flat_plan: Optional[ExecutionPlan] = None
+
+    @property
+    def ranks(self) -> int:
+        """Ranks of the payload's leading axis (nn * L, or L flat)."""
+        if self.flat_plan is not None:
+            return self.flat_plan.n
+        return self.rs_plan.n * self.ar_plan.n
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """Replay on a node-major ``(nn * L, rows, cols)`` payload (the
+        flat fallback: ``(L, rows, cols)``). Pure replay."""
+        if tuple(x.shape[1:]) != tuple(self.shape) \
+                or x.shape[0] != self.ranks:
+            raise ValueError(
+                f"hierarchical plan compiled for shape {self.shape} on "
+                f"{self.ranks} ranks, got {tuple(x.shape)}")
+        if self.flat_plan is not None:
+            return self.flat_plan(x)
+        rows = x.shape[1]
+        if self.pad:
+            x = F.pad(x, (0, 0, 0, self.pad))
+        shard = self.rs_plan(x)
+        shard = self.ar_plan(shard)
+        out = self.ag_plan(shard)
+        return out[:, :rows] if self.pad else out
+
+    # -- inspection --------------------------------------------------------
+    @property
+    def phases(self) -> Dict[str, ExecutionPlan]:
+        if self.flat_plan is not None:
+            return {"flat": self.flat_plan}
+        return {"rs": self.rs_plan, "ar": self.ar_plan, "ag": self.ag_plan}
+
+    @property
+    def estimate_us(self) -> float:
+        """Analytic span: the phases run back to back, so costs add."""
+        return sum(p.estimate_us for p in self.phases.values())
+
+    @property
+    def algo(self) -> str:
+        """Phase algorithms as one label, e.g. ``allpairs_rs+
+        allreduce_1pa+allpairs_ag`` (or the flat plan's algorithm)."""
+        return "+".join(p.algo for p in self.phases.values())
+
+    def cost_card(self) -> dict:
+        return dict(collective="all_reduce", kind="hierarchical",
+                    shape=tuple(self.shape), dtype=self.dtype,
+                    axes=[a for a in (self.local_axis, self.node_axis)
+                          if a is not None],
+                    algo=self.algo, pad=self.pad,
+                    estimate_us=round(self.estimate_us, 3),
+                    phases={k: p.cost_card()
+                            for k, p in self.phases.items()})
+
+    def __repr__(self):
+        axes = (self.local_axis if self.node_axis is None
+                else f"{self.local_axis}x{self.node_axis}")
+        return (f"HierarchicalPlan({self.algo} axes={axes} "
+                f"shape={tuple(self.shape)} dtype={self.dtype} "
+                f"est={self.estimate_us:.2f}us)")
+
+    # -- serialization -----------------------------------------------------
+    def to_dict(self) -> dict:
+        return dict(
+            version=PLAN_FORMAT_VERSION, format=PLAN_FORMAT_VERSION,
+            kind="hierarchical_plan", collective="all_reduce",
+            shape=list(self.shape), dtype=self.dtype,
+            local_axis=self.local_axis, node_axis=self.node_axis,
+            pad=self.pad, estimate_us=self.estimate_us,
+            plans={k: p.to_dict() for k, p in self.phases.items()},
+        )
+
+    def to_json(self, **json_kw) -> str:
+        json_kw.setdefault("indent", 2)
+        json_kw.setdefault("sort_keys", True)
+        return json.dumps(self.to_dict(), **json_kw)
+
+    @classmethod
+    def from_dict(cls, d: dict, *, device: DeviceLike = None,
+                  backend: Optional[str] = None,
+                  verify: str = "strict") -> "HierarchicalPlan":
+        """Rebuild from :meth:`to_dict` output (either package's): every
+        phase plan is verified and prepared for ``device`` with
+        ``backend``, with the replay geometry of its axis."""
+        _check_version(d, "HierarchicalPlan")
+        if d.get("kind") != "hierarchical_plan":
+            raise ValueError(
+                f"not a hierarchical plan payload (kind="
+                f"{d.get('kind')!r}); use ExecutionPlan/BucketedPlan")
+        req = lambda k: _field(d, k, "HierarchicalPlan")  # noqa: E731
+        payload = req("plans")
+        kw = dict(device=device, backend=backend, verify=verify)
+        if "flat" in payload:
+            phase = dict(rs_plan=None, ar_plan=None, ag_plan=None,
+                         flat_plan=ExecutionPlan.from_dict(payload["flat"],
+                                                           **kw))
+        else:
+            missing = {"rs", "ar", "ag"} - set(payload)
+            if missing:
+                raise ValueError(
+                    f"hierarchical plan payload missing phase plans "
+                    f"{sorted(missing)} (has {sorted(payload)})")
+            grid = RankGrid(
+                _field(payload["ar"], "n", "HierarchicalPlan ar phase"),
+                _field(payload["rs"], "n", "HierarchicalPlan rs phase"))
+            lgroups, lstride = grid.local_view
+            ngroups, nstride = grid.node_view
+            phase = dict(
+                rs_plan=ExecutionPlan.from_dict(payload["rs"], groups=lgroups,
+                                                stride=lstride, **kw),
+                ar_plan=ExecutionPlan.from_dict(payload["ar"], groups=ngroups,
+                                                stride=nstride, **kw),
+                ag_plan=ExecutionPlan.from_dict(payload["ag"], groups=lgroups,
+                                                stride=lstride, **kw),
+                flat_plan=None)
+        return cls(shape=tuple(req("shape")), dtype=_dtype_name(req("dtype")),
+                   local_axis=req("local_axis"), node_axis=req("node_axis"),
+                   pad=req("pad"), **phase)
+
+    @classmethod
+    def from_json(cls, s: str, **kw) -> "HierarchicalPlan":
+        return cls.from_dict(json.loads(s), **kw)
+
+
+class HierarchicalCommunicator:
+    """Two-axis planning object for a node × local rank grid: owns a
+    local-axis and a node-axis :class:`Communicator` and compiles frozen
+    :class:`HierarchicalPlan` s composing RS(local) → AR(node) →
+    AG(local).
+
+    With ``node_axis=None`` (or ``node_n=1``) it degrades to a flat
+    single-axis plan on the local communicator. Each axis keeps its own
+    :class:`~.selector.LinkModel`; both default to the placeholder
+    ``selector.UNFITTED`` (the reference's ICI/DCN are TPU constants and
+    are passed explicitly only where a test holds the port to the
+    reference). The cross-node AR uses 1PA for payloads at or under
+    ``small_message_bytes`` (paper §4.4's first 2PH variant), else the
+    node axis's selector choice."""
+
+    def __init__(self, local_axis: str, node_axis: Optional[str] = None, *,
+                 local_n: int, node_n: Optional[int] = None,
+                 device: DeviceLike = None,
+                 local_link: sel.LinkModel = sel.UNFITTED,
+                 node_link: sel.LinkModel = sel.UNFITTED,
+                 backend: Optional[str] = None,
+                 opt_level: Optional[int] = None,
+                 small_message_bytes: int = 1 << 20,
+                 verify: str = "strict"):
+        if node_axis is not None and node_n is None:
+            raise ValueError(f"node axis {node_axis!r} needs its size "
+                             f"node_n")
+        self.local = Communicator(local_axis, n=local_n, device=device,
+                                  link=local_link, backend=backend,
+                                  opt_level=opt_level, verify=verify)
+        self.node = (Communicator(node_axis, n=node_n, device=device,
+                                  link=node_link, backend=backend,
+                                  opt_level=opt_level, verify=verify)
+                     if node_axis is not None else None)
+        self.small_message_bytes = small_message_bytes
+        self._plans: Dict[tuple, HierarchicalPlan] = {}
+        self.stats = {"compiles": 0, "hits": 0}
+
+    @property
+    def local_axis(self) -> str:
+        return self.local.axis
+
+    @property
+    def node_axis(self) -> Optional[str]:
+        return None if self.node is None else self.node.axis
+
+    def compile(self, shape, dtype, *, backend: Optional[str] = None,
+                opt_level: Optional[int] = None) -> HierarchicalPlan:
+        """Compile (or fetch) the hierarchical AllReduce plan for one
+        rank's ``(rows, cols)`` payload."""
+        rows, cols = int(shape[0]), int(shape[1])
+        dtype_name = _dtype_name(dtype)
+        lnum = self.local.n
+        nnum = 1 if self.node is None else self.node.n
+        key = ((rows, cols), dtype_name, lnum, nnum, backend, opt_level)
+        plan = self._plans.get(key)
+        if plan is not None:
+            self.stats["hits"] += 1
+            return plan
+        if nnum <= 1:
+            flat = self.local.compile("all_reduce", (rows, cols), dtype_name,
+                                      backend=backend, opt_level=opt_level)
+            plan = HierarchicalPlan(
+                shape=(rows, cols), dtype=dtype_name,
+                local_axis=self.local.axis, node_axis=self.node_axis,
+                pad=0, rs_plan=None, ar_plan=None, ag_plan=None,
+                flat_plan=flat)
+        else:
+            plan = HierarchicalPlan(
+                shape=(rows, cols), dtype=dtype_name,
+                local_axis=self.local.axis, node_axis=self.node.axis,
+                **_hierarchical_phases(
+                    self.local, self.node, (rows, cols), dtype_name,
+                    backend=backend, opt_level=opt_level,
+                    small_message_bytes=self.small_message_bytes))
+        self._plans[key] = plan
+        self.stats["compiles"] += 1
+        return plan
+
+    def all_reduce(self, x: torch.Tensor, **kw) -> torch.Tensor:
+        """x: node-major ``(nn * L, rows, cols)`` -> the same shape,
+        summed over the whole grid."""
+        return self.compile(tuple(x.shape[1:]), x.dtype, **kw)(x)
+
+    def plans(self) -> Dict[tuple, HierarchicalPlan]:
+        """A snapshot of the hierarchical plan cache."""
+        return dict(self._plans)
+
+    def __repr__(self):
+        return (f"HierarchicalCommunicator(local={self.local.axis!r}, "
+                f"node={self.node_axis!r}, plans={len(self._plans)}, "
+                f"stats={self.stats})")
+
+
 # ---------------------------------------------------------------------------
 # plan sets: the §4.4 deployment artifact (compile once, ship JSON files)
 # ---------------------------------------------------------------------------
 def plan_from_json(text: str, **kw):
-    """Load a plan of either flavor; ``kw`` go to ``from_dict``
-    (``device``, ``backend``, ``verify``)."""
+    """Load any plan flavor, dispatching on the payload's ``kind``
+    (``bucketed_plan`` / ``hierarchical_plan`` / a plain
+    :class:`ExecutionPlan`); ``kw`` go to ``from_dict`` (``device``,
+    ``backend``, ``verify``)."""
     kind = json.loads(text).get("kind")
     if kind == "bucketed_plan":
         return BucketedPlan.from_json(text, **kw)
     if kind == "hierarchical_plan":
-        raise NotImplementedError("hierarchical plans are not ported yet")
+        return HierarchicalPlan.from_json(text, **kw)
     return ExecutionPlan.from_json(text, **kw)
 
 
@@ -603,6 +983,11 @@ def export_plan_set(plans: Dict[str, Any], path) -> pathlib.Path:
     path.mkdir(parents=True, exist_ok=True)
     entries = {}
     for name, plan in sorted(plans.items()):
+        if not hasattr(plan, "to_json"):
+            raise TypeError(
+                f"plan set entry {name!r} is {type(plan).__name__}, which "
+                f"has no to_json(): only ExecutionPlan/BucketedPlan/"
+                f"HierarchicalPlan belong in a plan set")
         text = plan.to_json()
         fname = f"{name}.json"
         (path / fname).write_text(text)

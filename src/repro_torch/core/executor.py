@@ -32,6 +32,14 @@ declaration vs. implementation):
 
 Both take ``x`` shaped ``(n, chunks_in * rows, cols)`` — rank ``r``'s
 payload is ``x[r]`` — and return ``(n, chunks_out * rows, cols)``.
+
+Both also run one program over ``groups`` disjoint groups of ``n`` ranks
+of a ``(groups * n, ...)`` tensor (``groups=``, ``stride=``; member ``m``
+of group ``g`` is rank ``g % stride + m * stride + (g // stride) * n *
+stride``, :func:`repro_torch.mesh.group_ranks`): the per-axis phases of a
+hierarchical plan on a node-major rank grid. The kernel runs every group
+in one launch, reading strided groups in place; the plain version runs
+the groups one after another.
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dsl import IndexExpr, Instr, Op, Program, full_fanout
+from repro_torch.mesh import group_ranks
 
 __all__ = ["TorchExecutor", "CudaExecutor", "EncodedProgram", "encode",
            "execute", "OPCODES", "FIELDS"]
@@ -280,11 +289,26 @@ class TorchExecutor:
         self._set(bufs, db, di, acc, n, ar)
 
     # -- entry point ---------------------------------------------------------
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        p = self.program
+    def __call__(self, x: torch.Tensor, *, groups: int = 1,
+                 stride: int = 1) -> torch.Tensor:
         if x.dim() != 3:
             raise ValueError(f"expected a rank-stacked (n, rows, cols) "
                              f"payload, got shape {tuple(x.shape)}")
+        if groups == 1:
+            return self._run(x)
+        if x.shape[0] % groups:
+            raise ValueError(f"{x.shape[0]} ranks do not split into "
+                             f"{groups} groups")
+        members = group_ranks(groups, x.shape[0] // groups, stride)
+        outs = [self._run(x[m]) for m in members]
+        out = torch.empty((x.shape[0],) + tuple(outs[0].shape[1:]),
+                          dtype=outs[0].dtype, device=x.device)
+        for m, o in zip(members, outs):
+            out[m] = o
+        return out
+
+    def _run(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.program
         n, total, cols = x.shape
         n_in = p.chunks[p.in_buffer]
         rows = total // n_in
@@ -340,7 +364,7 @@ OPCODES = {"nop": 0, "put": 1, "wait": 2, "copy": 3, "reduce": 4,
 #:   barrier [op, -, -, -, -, -, -, barrier_id]
 #:   zero    [op, -, -, dst_buf, dst_chunk, -, nchunks, -]
 FIELDS = 8
-MAX_RANKS = 8       # kMaxRanks in csrc/executor.cu
+MAX_RANKS = 16      # kMaxGridRanks in csrc/executor.cu: ranks of one launch
 MAX_BUFFERS = 8     # kMaxBufs
 MAX_OPERANDS = 32   # kMaxOperands
 
@@ -563,10 +587,11 @@ class CudaExecutor:
         self.encoded = encode(self.program, n)
         return self
 
-    def bind(self, rows: int, cols: int, dtype: torch.dtype,
-             device) -> "CudaExecutor":
-        """Allocate the device state for ``(n, n_in*rows, cols)`` payloads
-        of ``dtype`` on ``device``: instruction table, flags, scratch."""
+    def bind(self, rows: int, cols: int, dtype: torch.dtype, device, *,
+             groups: int = 1) -> "CudaExecutor":
+        """Allocate the device state for ``(groups * n, n_in*rows, cols)``
+        payloads of ``dtype`` on ``device``: instruction table, flags (one
+        set per group), scratch."""
         enc = self.encoded
         if enc is None:
             raise RuntimeError("CudaExecutor.bind before prepare(n)")
@@ -579,17 +604,25 @@ class CudaExecutor:
                              f"got {dtype}")
         p = self.program
         n = enc.n
-        scratch = [torch.empty((n, p.chunks[b] * rows, cols), dtype=dtype,
-                               device=device) for b in enc.buffers[2:]]
-        flags = torch.zeros(max(1, n * enc.n_flags + n * enc.n_barriers),
-                            dtype=torch.int32, device=device)
+        if groups < 1 or groups * n > MAX_RANKS:
+            raise ValueError(f"{groups} groups of {n} ranks: the CUDA "
+                             f"executor runs at most {MAX_RANKS} ranks per "
+                             f"launch")
+        scratch = [torch.empty((groups * n, p.chunks[b] * rows, cols),
+                               dtype=dtype, device=device)
+                   for b in enc.buffers[2:]]
+        group_flags = max(1, n * enc.n_flags + n * enc.n_barriers)
+        flags = torch.zeros(groups * group_flags, dtype=torch.int32,
+                            device=device)
         ops = torch.from_numpy(enc.ops).to(device)
         opnds = torch.from_numpy(enc.operands).to(device)
-        self._bound = (rows, cols, dtype, device, scratch, flags, ops, opnds)
+        self._bound = (rows, cols, dtype, device, groups, scratch, flags,
+                       group_flags, ops, opnds)
         self._epoch = 0
         return self
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, *, groups: int = 1,
+                 stride: int = 1) -> torch.Tensor:
         if x.device.type != "cuda":
             raise ValueError(
                 f"CudaExecutor runs CUDA tensors only, got a tensor on "
@@ -598,43 +631,50 @@ class CudaExecutor:
         if enc is None:
             raise RuntimeError("CudaExecutor called before prepare(n)")
         p = self.program
-        if x.dim() != 3 or x.shape[0] != enc.n:
-            raise ValueError(f"expected ({enc.n}, rows, cols), got "
-                             f"{tuple(x.shape)}")
-        n, total, cols = x.shape
+        if x.dim() != 3 or x.shape[0] != groups * enc.n:
+            raise ValueError(f"expected ({groups} * {enc.n}, rows, cols), "
+                             f"got {tuple(x.shape)}")
+        if stride < 1 or groups % stride:
+            raise ValueError(f"{groups} groups at stride {stride}: the group "
+                             f"count must be a multiple of the stride")
+        n = enc.n
+        total, cols = x.shape[1], x.shape[2]
         n_in, n_out = p.chunks[p.in_buffer], p.chunks[p.out_buffer]
         if total % n_in:
             raise ValueError(f"{total} rows do not divide into the {n_in} "
                              f"input chunks of {p.name!r}")
         rows = total // n_in
-        if self._bound is None or self._bound[:4] != (rows, cols, x.dtype,
-                                                      x.device):
-            self.bind(rows, cols, x.dtype, x.device)
-        _, _, dtype, device, scratch, flags, ops, opnds = self._bound
+        if self._bound is None or self._bound[:5] != (rows, cols, x.dtype,
+                                                      x.device, groups):
+            self.bind(rows, cols, x.dtype, x.device, groups=groups)
+        (_, _, dtype, device, _, scratch, flags, group_flags, ops,
+         opnds) = self._bound
         x = x.contiguous()
         if enc.writes_input:
             x = x.clone()
-        out = torch.empty((n, n_out * rows, cols), dtype=dtype, device=device)
+        out = torch.empty((groups * n, n_out * rows, cols), dtype=dtype,
+                          device=device)
 
         chunk_elems = rows * cols
         esize = x.element_size()
         table = (ctypes.c_void_p * (MAX_BUFFERS * MAX_RANKS))()
         for b, t in enumerate([x, out] + scratch):
-            stride = (t.shape[1] * cols) * esize          # one rank's buffer
+            step = (t.shape[1] * cols) * esize            # one rank's buffer
             base = t.data_ptr()
-            for r in range(n):
-                table[b * MAX_RANKS + r] = base + r * stride
+            for r in range(groups * n):
+                table[b * MAX_RANKS + r] = base + r * step
         self._epoch = self._epoch % 0xFFFFFFFF + 1
         from repro_torch.kernels import build
         lib = build.executor_library()
         rc = lib.dsl_executor_launch(
-            table, _DTYPE_CODES[dtype], n, ops.data_ptr(), ops.shape[1],
-            opnds.data_ptr(), opnds.shape[1], flags.data_ptr(),
-            enc.n_flags, self._epoch, chunk_elems, self.threads,
+            table, _DTYPE_CODES[dtype], n, groups, stride, ops.data_ptr(),
+            ops.shape[1], opnds.data_ptr(), opnds.shape[1], flags.data_ptr(),
+            enc.n_flags, group_flags, self._epoch, chunk_elems, self.threads,
             torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
             raise RuntimeError(
-                f"dsl_executor launch failed for {p.name!r} (n={n}): "
+                f"dsl_executor launch failed for {p.name!r} (n={n}, "
+                f"groups={groups}): "
                 f"{lib.dsl_executor_error_string(rc).decode()}")
         CudaExecutor.launches += 1
         return out

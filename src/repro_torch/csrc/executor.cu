@@ -27,6 +27,14 @@
 //   buffer type after each add, exactly like `acc + v` on torch tensors, so
 //   the kernel is bit-equal to TorchExecutor in bf16 as well as f32.
 //
+// * A group view: one launch can run the same plan over `groups` disjoint
+//   groups of n ranks, block g * n + m playing member m of group g, which is
+//   rank g % stride + m * stride + (g / stride) * n * stride of the buffer
+//   table; each group has its own flags. stride 1 gives contiguous groups
+//   (the local axis of a node-major grid), stride L the ranks of one local
+//   index across nodes (the node axis), read in place, with no transposing
+//   copy. One group at stride 1 is the plain single-axis launch.
+//
 // Bound on an H100 SXM: the bytes moved through HBM (each input read once,
 // each output written once, at 3.35 TB/s), and at decode sizes (a few to a
 // few hundred KB) the launch latency and the flag round trips, which one
@@ -38,6 +46,7 @@
 namespace msccl {
 
 constexpr int kMaxBufs = 8;       // MAX_BUFFERS
+constexpr int kMaxGridRanks = 16; // MAX_RANKS: ranks of all groups of one launch
 constexpr int kMaxOperands = 32;  // MAX_OPERANDS
 constexpr int kFields = 8;        // FIELDS
 
@@ -45,7 +54,7 @@ enum : int { OP_NOP = 0, OP_PUT = 1, OP_WAIT = 2, OP_COPY = 3, OP_REDUCE = 4,
              OP_BARRIER = 5, OP_ZERO = 6 };
 
 struct BufTable {
-  void* p[kMaxBufs][kMaxRanks];  // [buffer id][rank] -> rank's base pointer
+  void* p[kMaxBufs][kMaxGridRanks];  // [buffer id][rank] -> rank's base pointer
 };
 
 template <typename B>
@@ -57,16 +66,19 @@ template <typename T>
 __global__ void __launch_bounds__(1024)
 dsl_executor_kernel(BufTable bufs, const int* __restrict__ ops, int n_ops,
                     const int* __restrict__ opnds, int opnds_per_rank,
-                    unsigned* flags, int n_flags, unsigned epoch,
-                    long long chunk_elems, int n) {
+                    unsigned* flags, int n_flags, int group_flags, unsigned epoch,
+                    long long chunk_elems, int n, int stride) {
   using B = typename Elem<T>::B;
   __shared__ const B* s_src[kMaxOperands];
-  const int me = blockIdx.x;
+  const int g = blockIdx.x / n, me = blockIdx.x % n;  // group, member
   const int* row = ops + static_cast<long long>(me) * n_ops * kFields;
   const int* my_opnds = opnds + static_cast<long long>(me) * opnds_per_rank * 2;
+  flags += static_cast<long long>(g) * group_flags;
   unsigned* bar_flags = flags + static_cast<long long>(n) * n_flags;
-  auto chunk = [&](int buf, int rank, int c) -> B* {
-    return static_cast<B*>(bufs.p[buf][rank]) + static_cast<long long>(c) * chunk_elems;
+  const int rank0 = g % stride + (g / stride) * n * stride;  // member 0's rank
+  auto chunk = [&](int buf, int member, int c) -> B* {
+    return static_cast<B*>(bufs.p[buf][rank0 + member * stride]) +
+           static_cast<long long>(c) * chunk_elems;
   };
 
   for (int i = 0; i < n_ops; ++i) {
@@ -112,20 +124,23 @@ dsl_executor_kernel(BufTable bufs, const int* __restrict__ ops, int n_ops,
 
 extern "C" {
 
-// Launch one replay. `table` is a host array of kMaxBufs * kMaxRanks base
-// pointers ([buffer][rank]); ops/opnds/flags are device pointers. Returns the
-// launch's cudaError_t (0 on success).
-int dsl_executor_launch(const void* table, int dtype, int n, const int* ops,
-                        int n_ops, const int* opnds, int opnds_per_rank,
-                        unsigned* flags, int n_flags, unsigned epoch,
+// Launch one replay over `groups` groups of n ranks (the group view above).
+// `table` is a host array of kMaxBufs * kMaxGridRanks base pointers
+// ([buffer][rank]); ops/opnds/flags are device pointers, flags
+// `group_flags` words a group. Returns the launch's cudaError_t (0 on
+// success).
+int dsl_executor_launch(const void* table, int dtype, int n, int groups, int stride,
+                        const int* ops, int n_ops, const int* opnds, int opnds_per_rank,
+                        unsigned* flags, int n_flags, int group_flags, unsigned epoch,
                         long long chunk_elems, int threads, void* stream) {
   using namespace msccl;
-  if (n < 1 || n > kMaxRanks || threads < 32 || threads > 1024)
+  if (n < 1 || groups < 1 || stride < 1 || groups % stride || n * groups > kMaxGridRanks ||
+      threads < 32 || threads > 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   BufTable t;
   memcpy(&t, table, sizeof(t));
   void* args[] = {&t, &ops, &n_ops, &opnds, &opnds_per_rank, &flags,
-                  &n_flags, &epoch, &chunk_elems, &n};
+                  &n_flags, &group_flags, &epoch, &chunk_elems, &n, &stride};
   const void* fn;
   switch (dtype) {
     case 0: fn = reinterpret_cast<const void*>(&dsl_executor_kernel<float>); break;
@@ -133,9 +148,9 @@ int dsl_executor_launch(const void* table, int dtype, int n, const int* ops,
     case 2: fn = reinterpret_cast<const void*>(&dsl_executor_kernel<__half>); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  // cooperative: the launch fails instead of deadlocking when the n rank
+  // cooperative: the launch fails instead of deadlocking when the rank
   // blocks cannot all be resident at once
-  cudaError_t err = cudaLaunchCooperativeKernel(fn, dim3(n), dim3(threads), args, 0,
+  cudaError_t err = cudaLaunchCooperativeKernel(fn, dim3(n * groups), dim3(threads), args, 0,
                                                 static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -23,7 +23,8 @@ from typing import Dict, List, Optional
 __all__ = ["CSRC", "build_dir", "nvcc", "build_all", "executor_library",
            "allreduce_1pa_library", "allpairs_2pa_library",
            "allgather_ring_library", "alltoall_library",
-           "flash_attention_library", "last_build"]
+           "flash_attention_library", "allreduce_2ph_library",
+           "collective_matmul_library", "last_build"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _REPO = pathlib.Path(__file__).resolve().parents[3]
@@ -111,10 +112,12 @@ def executor_library() -> ctypes.CDLL:
     lib.dsl_executor_launch.argtypes = [
         c.c_void_p,            # host table of per-rank buffer pointers
         c.c_int,               # dtype code
-        c.c_int,               # n ranks
+        c.c_int,               # n ranks a group
+        c.c_int, c.c_int,      # groups, rank stride of a group
         c.c_void_p, c.c_int,   # instruction table (device), ops per rank
         c.c_void_p, c.c_int,   # operand table (device), operands per rank
         c.c_void_p, c.c_int,   # flags (device), put flag slots per rank
+        c.c_int,               # flag words a group
         c.c_uint,              # epoch
         c.c_longlong,          # elements per chunk
         c.c_int,               # threads per block
@@ -188,3 +191,24 @@ def flash_attention_library() -> ctypes.CDLL:
     return _collective_library("flash_attention", {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _P]})
+
+
+def allreduce_2ph_library() -> ctypes.CDLL:
+    """``csrc/allreduce_2ph.cu``: ``allreduce_2ph_launch(x, out, slots,
+    node_slots, flags, dtype, nn, L, count, blocks, epoch, threads,
+    stream)`` and ``allreduce_2ph_max_blocks(dtype, threads)``."""
+    return _collective_library("allreduce_2ph", {
+        "allreduce_2ph_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _U,
+                                 _I, _P],
+        "allreduce_2ph_max_blocks": [_I, _I]})
+
+
+def collective_matmul_library() -> ctypes.CDLL:
+    """``csrc/collective_matmul.cu``: ``ag_matmul_launch(x, w, out, xbuf,
+    flags, in_dtype, out_dtype, n, rows, K, F, w_per_rank, epoch, stream)``
+    and ``ag_matmul_tile(in_dtype, out_dtype, &bm, &bn)``."""
+    pint = ctypes.POINTER(ctypes.c_int)
+    return _collective_library("collective_matmul", {
+        "ag_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _U, _P],
+        "ag_matmul_tile": [_I, _I, pint, pint]})

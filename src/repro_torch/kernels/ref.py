@@ -19,7 +19,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["all_gather_ref", "reduce_scatter_ref", "all_reduce_ref",
-           "all_to_all_ref", "flash_attention_ref"]
+           "all_to_all_ref", "broadcast_ref", "allgather_matmul_ref",
+           "matmul_reducescatter_ref", "hierarchical_all_reduce_ref",
+           "flash_attention_ref"]
 
 
 def all_gather_ref(x: torch.Tensor) -> torch.Tensor:
@@ -46,6 +48,39 @@ def all_to_all_ref(x: torch.Tensor) -> torch.Tensor:
     """x: (N, N, *chunk) — x[d, c] goes from rank d to rank c.
     Returns y with y[c, d] = x[d, c] (transpose over the rank axes)."""
     return x.transpose(0, 1)
+
+
+def broadcast_ref(x: torch.Tensor, root: int) -> torch.Tensor:
+    """x: (N, *buf) -> every rank holds x[root]."""
+    n = x.shape[0]
+    return x[root].unsqueeze(0).expand((n,) + tuple(x.shape[1:]))
+
+
+def allgather_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Fused all-gather(x over ranks) @ w.
+
+    x: (N, rows_per_rank, K) shards; w: (K, F) replicated. Returns (N,
+    N*rows_per_rank, F): each rank computes the full product of the
+    gathered activations with its (local) weight shard."""
+    n = x.shape[0]
+    out = x.reshape(n * x.shape[1], x.shape[2]) @ w
+    return out.unsqueeze(0).expand((n,) + tuple(out.shape))
+
+
+def matmul_reducescatter_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Partial products summed over ranks and scattered by row blocks.
+
+    x: (N, rows, K), rank d's partial activations; w: (K, F) replicated.
+    Returns (N, rows/N, F): rank d holds row block d of sum_d x[d] @ w."""
+    n, rows = x.shape[0], x.shape[1]
+    total = torch.einsum("nrk,kf->nrf", x, w).sum(dim=0)
+    return total.reshape(n, rows // n, total.shape[-1])
+
+
+def hierarchical_all_reduce_ref(x: torch.Tensor) -> torch.Tensor:
+    """Same as all_reduce_ref; the hierarchy is an implementation detail.
+    x: (N_outer*N_inner, *buf)."""
+    return all_reduce_ref(x)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -10,15 +10,25 @@ axis, and ``RankAxis.index()`` plays ``jax.lax.axis_index``.
 Device resolution is shared by every entry point: ``device=None`` means
 the CUDA card, and raises where there is none — the port never carries
 on on the CPU unless the caller asked for it.
+
+A two-level mesh (the reference's ``P("node", "local")``, paper §4.4's
+nodes of L local ranks) is stacked node-major: rank = node·L + local, so
+one ``(nn·L, rows, cols)`` tensor is both the hierarchical path's payload
+and a flat axis of nn·L ranks. :class:`RankGrid` gives each axis's group
+view (the ``groups``/``stride`` a phase plan replays with), and
+:func:`group_ranks` is the one rule every group view follows: member
+``m`` of group ``g`` is rank ``g % stride + m·stride + (g // stride)·n·
+stride`` — stride 1 gives contiguous groups (the local axis), stride L
+the ranks of one local index across nodes (the node axis).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import List, Tuple, Union
 
 import torch
 
-__all__ = ["RankAxis", "resolve_device"]
+__all__ = ["RankAxis", "RankGrid", "group_ranks", "resolve_device"]
 
 DeviceLike = Union[None, str, torch.device]
 
@@ -70,3 +80,58 @@ class RankAxis:
         """Every rank's own copy of ``x`` (a replicated leaf)."""
         x = x.to(self.device)
         return x.unsqueeze(0).expand((self.n,) + tuple(x.shape)).contiguous()
+
+
+def group_ranks(groups: int, n: int, stride: int = 1) -> List[List[int]]:
+    """The global ranks of ``groups`` groups of ``n`` members each:
+    member ``m`` of group ``g`` is rank ``g % stride + m * stride +
+    (g // stride) * n * stride``. ``groups`` must be a multiple of
+    ``stride``."""
+    if groups < 1 or n < 1 or stride < 1 or groups % stride:
+        raise ValueError(f"{groups} groups of {n} ranks at stride {stride}: "
+                         f"the group count must be a positive multiple of "
+                         f"the stride")
+    return [[g % stride + m * stride + (g // stride) * n * stride
+             for m in range(n)] for g in range(groups)]
+
+
+@dataclasses.dataclass(frozen=True)
+class RankGrid:
+    """A two-level mesh of ``nodes`` × ``local`` ranks stacked node-major
+    on one device: rank ``node * local + l``."""
+
+    nodes: int
+    local: int
+
+    def __post_init__(self):
+        if self.nodes < 1 or self.local < 1:
+            raise ValueError(f"a {self.nodes} x {self.local} rank grid: both "
+                             f"axes must be >= 1")
+
+    @property
+    def size(self) -> int:
+        return self.nodes * self.local
+
+    def rank(self, node: int, local: int) -> int:
+        return node * self.local + local
+
+    @property
+    def local_view(self) -> Tuple[int, int]:
+        """``(groups, stride)`` of the local axis: ``nodes`` groups of
+        ``local`` contiguous ranks (one per node)."""
+        return self.nodes, 1
+
+    @property
+    def node_view(self) -> Tuple[int, int]:
+        """``(groups, stride)`` of the node axis: ``local`` groups of
+        ``nodes`` ranks at stride ``local`` (the ranks of one local index,
+        one per node)."""
+        return self.local, self.local
+
+    def local_groups(self) -> List[List[int]]:
+        groups, stride = self.local_view
+        return group_ranks(groups, self.local, stride)
+
+    def node_groups(self) -> List[List[int]]:
+        groups, stride = self.node_view
+        return group_ranks(groups, self.nodes, stride)

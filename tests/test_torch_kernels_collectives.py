@@ -251,12 +251,12 @@ def test_ring_neighbors():
      "unknown all_gather algo 'tree'"),
     (lambda x: ops.all_reduce(x, algo="ring"), ValueError,
      "unknown all_reduce algo 'ring'"),
-    (lambda x: ops.all_reduce(x, algo="2ph"), NotImplementedError,
-     "item 10"),
+    (lambda x: ops.all_reduce(x, algo="2ph"), ValueError,
+     "needs node_size"),
     (lambda x: ops.all_to_all(x[:, :3]), ValueError,
      "do not split into 4 blocks"),
-    (lambda x: ops.fused_allgather_matmul(x, x), NotImplementedError,
-     "item 9"),
+    (lambda x: ops.fused_allgather_matmul(x, x), ValueError,
+     "K = 16 does not match w's K = 8"),
     (lambda x: ops.flash_attention(x[None], x[None], x[None]), ValueError,
      "length 8 does not divide into block_q=128"),
     (lambda x: ops.all_reduce(x, backend="triton"), ValueError,
@@ -282,9 +282,12 @@ def test_cpu_tensor_never_reaches_a_cuda_library(monkeypatch):
     monkeypatch.setattr(comm_utils, "LAUNCHES", comm_utils.LAUNCHES.copy())
     comm_utils.LAUNCHES.clear()
     x = torch.randn(4, 8, 16)
+    w = torch.randn(16, 8)
     for name in NAMES:
         KERNELS[name][0](x)
     ops.all_to_all(x)
+    ops.all_reduce(x, algo="2ph", node_size=2)
+    ops.fused_allgather_matmul(x, w)
     assert not comm_utils.LAUNCHES
     for call in (lambda: ops.all_reduce(x, algo="1pa", backend="cuda"),
                  lambda: ops.all_reduce(x, algo="1pa", use_ll=False,
@@ -293,7 +296,10 @@ def test_cpu_tensor_never_reaches_a_cuda_library(monkeypatch):
                  lambda: ops.reduce_scatter(x, backend="cuda"),
                  lambda: ops.all_gather(x, algo="allpairs", backend="cuda"),
                  lambda: ops.all_gather(x, backend="cuda"),
-                 lambda: ops.all_to_all(x, backend="cuda")):
+                 lambda: ops.all_to_all(x, backend="cuda"),
+                 lambda: ops.all_reduce(x, algo="2ph", node_size=2,
+                                        backend="cuda"),
+                 lambda: ops.fused_allgather_matmul(x, w, backend="cuda")):
         with pytest.raises(ValueError, match="CUDA tensors only"):
             call()
 
