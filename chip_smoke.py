@@ -11,10 +11,13 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
 
 1. device — the card's name, and name + power limit from nvidia-smi;
 2. build — compiles every kernel of ``src/repro_torch/csrc`` into
-   ``build/`` (one nvcc per source, started together);
+   ``build/`` (one nvcc per source, started together), and fails unless
+   the AllGather-matmul library's SASS (``cuobjdump -sass``) holds wgmma
+   (HGMMA) and TMA loads (UTMALDG) and no ``mma.sync`` (HMMA);
 3. kernel vs plain — the DSL-executor kernel against ``TorchExecutor``
    on the card, bit-equal in f32 and bf16, over every registry entry ×
-   n in {2, 4, 8} × O0-O3, and the decode plans of qwen3-1.7b and of
+   n in {2, 4, 8} × O0-O3 at three sizes (the last several blocks a rank
+   with a ragged last tile), and the decode plans of qwen3-1.7b and of
    phi3.5-moe (its ``moe_alltoall`` among them) at TP 2/4;
 4. main path — full-width qwen3-1.7b (28 layers, seeded random bf16
    weights), TP=4 stacked on the card: 8 requests of 16-token prompts,
@@ -26,7 +29,8 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
 6. kernel time at each decode shape (the AllReduce and AllGather plans
    of qwen3-1.7b and of phi3.5-moe, and phi3.5-moe's all_to_all plans)
    beside its HBM bound, the plain version and a one-call PyTorch
-   yardstick;
+   yardstick, with the launch's blocks a rank and threads, and the same
+   program's time on 8 elements a chunk (launch and flags, no copies);
 7. (opt-in, ``--phases 7``) a ``torch.profiler`` breakdown of one
    decode step in each mode, for the main paths of phases 4 and 9, and
    of one prefill forward of each phase-10 model: device busy share and
@@ -87,7 +91,12 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    relative L2 error of 1e-5 (f32 out) or 1e-2 (bf16 out) of its plain
    version over n in {2, 4, 8} x rows in {2, 64, 4096} x K in {128, 2048}
    x F in {128, 512, 1536} x shared and per-rank w x (bf16 -> f32, bf16
-   -> bf16, f32 -> f32), and two calls in a row; a fault control of each
+   -> bf16, f32 -> f32), at both sides of the bf16 regime threshold (n
+   rows = 64) with K and F off the tile sizes, and two calls in a row;
+   every bf16 -> bf16 result also bit-equal to the kernel's own f32 out
+   rounded to bf16 (one main loop, two epilogues: a fault in the bf16
+   epilogue's staging shows there, however few rows it touches); a
+   fault control of each
    in plain torch, past its gate; on integer payloads at 2 x 4 and 4 x 4,
    the hierarchical plan replay loaded from its exported JSON, the 2PH
    kernel, the flat nn*L plan and the plain sum bit-equal; the main path
@@ -99,14 +108,15 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    plan replay bit-equal to the same plan files on ``TorchExecutor`` and
    the kernel to its plain version; then the AllGather-matmul at
    qwen3-1.7b's TP=4 projection shapes (prefill and decode into the
-   w_gate and wq column shards, bf16 in, bf16 and f32 out); and each
+   w_gate and wq column shards, bf16 in, bf16 and f32 out, the bf16 out
+   bit-equal to the f32 out rounded); and each
    kernel's device time per leaf or shape beside its bound, its plain
    version and a one-call PyTorch yardstick, the plan replay's time and
    the peak device memory.
 
 The last lines are the card's nvidia-smi line, one ``{"kernels": [...]}``
-JSON object, and ``{"ok": true, "device": {...}}``. The whole record
-also goes to ``chiprun_out/chip_smoke.json``.
+JSON object, and ``{"ok": true, "device": {...}}``. The whole record,
+the kernels line among it, also goes to ``chiprun_out/chip_smoke.json``.
 The kernels line holds one entry per kernel. The executor's times are
 the launch-weighted mean of both main paths' decode mixes, each path's
 own under ``by_path`` and every shape's under ``per_shape``; its group
@@ -125,6 +135,7 @@ import dataclasses
 import functools
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -225,6 +236,11 @@ HIER_GRIDS = ((2, 2), (2, 4), (4, 4))
 HIER_ROWS, HIER_COLS = (1, 8, 37), (1, 128, 2048)
 AGMM_GRID = dict(n=(2, 4, 8), rows=(2, 64, 4096), k=(128, 2048),
                  f=(128, 512, 1536))
+# the bf16 kernel's two regimes (kernels/collective_matmul.py:regime) on
+# both sides of n * rows = 64, with K and F that are not multiples of the
+# 64-deep k-tiles or the 64- and 256-wide column tiles: (n, rows, K, F)
+AGMM_EDGES = ((4, 16, 136, 72), (4, 17, 136, 72), (2, 32, 200, 200),
+              (2, 33, 200, 200), (8, 8, 2048, 1544), (8, 9, 2048, 1544))
 HIER_NN, HIER_L = 2, 4                  # the main path: the reference's mesh2x4
 # every leaf through the plan and the kernel, against the f64 sum: bf16
 # wire values, each add rounded to bf16 in the fold
@@ -317,10 +333,22 @@ def phase_build():
     build.collective_matmul_library()
     ptxas = [ln.strip() for b in build.last_build.values()
              for ln in b["log"].splitlines() if "registers" in ln]
+    # the AllGather-matmul's bf16 product: wgmma (HGMMA) fed by TMA
+    # (UTMALDG), and no mma.sync (HMMA) left
+    sass = subprocess.run(
+        [str(pathlib.Path(build.nvcc()).parent / "cuobjdump"), "-sass",
+         str(libs["collective_matmul"])], capture_output=True, text=True,
+        check=True, timeout=300).stdout
+    agmm_sass = {op: len(re.findall(rf"\b{op}\b", sass))
+                 for op in ("HGMMA", "UTMALDG", "HMMA")}
     emit("build", seconds=round(time.perf_counter() - t, 3),
          libraries=sorted(str(p.relative_to(ROOT)) if p.is_relative_to(ROOT)
                           else str(p) for p in libs.values()),
-         ptxas=ptxas)
+         ptxas=ptxas, collective_matmul_sass=agmm_sass)
+    check(agmm_sass["HGMMA"] > 0 and agmm_sass["UTMALDG"] > 0
+          and agmm_sass["HMMA"] == 0,
+          f"collective_matmul SASS: {agmm_sass} (want HGMMA and UTMALDG, "
+          f"no HMMA)")
 
 
 def _decode_plans(device):
@@ -357,8 +385,9 @@ def _moe_plans(device):
 
 def phase_kernel_vs_plain(device, gen):
     from repro_torch.core import algorithms, passes
-    from repro_torch.core.executor import OPCODES, CudaExecutor, TorchExecutor
-    cases, max_err = 0, 0.0
+    from repro_torch.core.executor import (OPCODES, THREADS, CudaExecutor,
+                                           TorchExecutor)
+    cases, max_err, blocks = 0, 0.0, set()
     for name in sorted(algorithms.REGISTRY):
         for n in (2, 4, 8):
             for lvl in range(4):
@@ -367,8 +396,10 @@ def phase_kernel_vs_plain(device, gen):
                 kern = CudaExecutor(prog).prepare(n)
                 plain = TorchExecutor(prog, vectorize=lvl > 0).prepare(n)
                 # (2, 40): aligned 16-byte vector path; (1, 13): odd
-                # chunk sizes, so later chunks take the scalar path
-                for rows, cols in ((2, 40), (1, 13)):
+                # chunk sizes, so later chunks take the scalar path;
+                # (37, 1003): several blocks a rank, the last tile ragged
+                # (37111 elements a chunk, not a multiple of 8 nb)
+                for rows, cols in ((2, 40), (1, 13), (37, 1003)):
                     for dtype in (torch.float32, torch.bfloat16):
                         x = torch.randn(n, n_in * rows, cols, generator=gen,
                                         device=device).to(dtype)
@@ -378,7 +409,11 @@ def phase_kernel_vs_plain(device, gen):
                                       .abs().max().item())
                         check(torch.equal(got, want),
                               f"kernel != plain: {name} n={n} O{lvl} "
-                              f"{dtype} ({rows}x{cols})")
+                              f"{dtype} ({rows}x{cols}, {kern.blocks} "
+                              f"blocks a rank)")
+                        check(rows < 37 or kern.blocks > 1,
+                              f"{name} n={n} {rows}x{cols}: one block a rank")
+                        blocks.add(kern.blocks)
                         cases += 1
     shapes = []
     families = [(ARCH, tp, pname, bp)
@@ -404,11 +439,13 @@ def phase_kernel_vs_plain(device, gen):
             shapes.append(dict(arch=arch, plan=pname, tp=tp, rows=b,
                                cols=plan.shape[1], dtype=plan.dtype,
                                algo=plan.algo, opt_level=plan.opt_level,
+                               blocks_per_rank=plan.executor.blocks,
                                table=list(enc.ops.shape),
                                flag_slots=enc.n_flags,
                                puts_per_rank=int((enc.ops[0, :, 0]
                                                   == OPCODES["put"]).sum())))
     emit("kernel_vs_plain", cases=cases, max_abs_err=max_err,
+         blocks_per_rank=sorted(blocks), threads=THREADS,
          decode_shapes=shapes)
     return max_err
 
@@ -524,8 +561,12 @@ def phase_kernel_time(device, gen):
     and AllGather plans; phi3.5-moe's, and its ``moe_alltoall`` plans,
     whose ``rows`` count rows per per-rank block): the kernel's device
     time per launch, its HBM bound (each input read once, each output
-    written once), the plain version and the one-call yardstick."""
-    from repro_torch.core.executor import TorchExecutor
+    written once), the plain version and the one-call yardstick; the
+    launch's blocks a rank and threads; and the same program's time on 8
+    elements a chunk (one block a rank): the launch, the instruction walk
+    and the flag round trips without the copies."""
+    from repro_torch.core.executor import (THREADS, CudaExecutor,
+                                           TorchExecutor)
 
     def library(pname, x):
         if pname == "layer_allreduce":
@@ -555,12 +596,18 @@ def phase_kernel_time(device, gen):
             k_ms, k_cov = device_ms(lambda: ex(x), 200)
             p_ms, p_cov = device_ms(lambda: plain(x), 50)
             l_ms, l_cov = device_ms(lib, 200)
+            tiny = CudaExecutor(prog).prepare(TP)
+            xt = torch.randn((TP, n_in, 8), generator=gen,
+                             device=device).to(ex._bound[2])
+            f_ms, f_cov = device_ms(lambda: tiny(xt), 200)
             rows_out.append(dict(
                 arch=arch, plan=pname, algo=plan.algo, rows=b,
                 cols=plan.shape[1], dtype=plan.dtype, ms=k_ms,
                 ms_wall=wall_ms(lambda: ex(x), 200), plain_ms=p_ms,
                 library_ms=l_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                bytes=nbytes, sleep_covered=bool(k_cov and p_cov and l_cov)))
+                bytes=nbytes, blocks_per_rank=ex.blocks, threads=THREADS,
+                flags_only_ms=f_ms,
+                sleep_covered=bool(k_cov and p_cov and l_cov and f_cov)))
     emit("kernel_time", shapes=rows_out)
     return rows_out
 
@@ -1745,9 +1792,10 @@ def _2ph_vs_plain(gen, device):
 
 def _agmm_vs_plain(gen, device):
     """The AllGather-matmul kernel against its plain version over the
-    grid, rel. L2 within AGMM_REL_TOL of the output type; two calls in a
-    row (the second on every rank's first row block, K = F); the fault
-    control's reading."""
+    grid, rel. L2 within AGMM_REL_TOL of the output type, and bf16 out
+    bit-equal to the kernel's f32 out rounded; two calls in a row (the
+    second on every rank's first row block, K = F); the fault control's
+    reading."""
     from repro_torch.kernels import ops
     cases, errs, rels = 0, {}, {}
 
@@ -1755,6 +1803,8 @@ def _agmm_vs_plain(gen, device):
         nonlocal cases
         y = ops.fused_allgather_matmul(x, w, out_dtype=odt)
         p = ops.fused_allgather_matmul(x, w, out_dtype=odt, backend="torch")
+        y32 = (ops.fused_allgather_matmul(x, w, out_dtype=torch.float32)
+               if (x.dtype, odt) == (torch.bfloat16,) * 2 else None)
         torch.cuda.synchronize()
         key = f"{str(x.dtype)[6:]}->{str(odt)[6:]}"
         rel = _rel_l2(y, p)
@@ -1765,6 +1815,8 @@ def _agmm_vs_plain(gen, device):
               and rel <= AGMM_REL_TOL[odt],
               f"AllGather-matmul kernel vs plain: {what} {key} rel. L2 "
               f"{rel} > {AGMM_REL_TOL[odt]}")
+        check(y32 is None or torch.equal(y, y32.to(odt)),
+              f"AllGather-matmul bf16 out != its f32 out rounded: {what}")
         cases += 1
         return y, p
 
@@ -1794,13 +1846,26 @@ def _agmm_vs_plain(gen, device):
                     y1, p1 = held(x, w, dt, f"twice, first n={n}")
                     held(y1[:, :rows].contiguous(), w, dt,
                          f"twice, second n={n}")
+    from repro_torch.kernels.collective_matmul import regime
+    edges = []
+    for n, rows, k, f in AGMM_EDGES:
+        for per_rank in (False, True):
+            for dt, odt in pairs:
+                x = _rand((n, rows, k), dt, gen, device)
+                w = _rand(((n,) if per_rank else ()) + (k, f), dt, gen,
+                          device)
+                held(x, w, odt, f"edge n={n} rows={rows} K={k} F={f} "
+                     f"per_rank={per_rank}")
+        edges.append(dict(n=n, rows=rows, K=k, F=f, regime=regime(n, rows)))
+    check({e["regime"] for e in edges} == {"decode", "prefill"},
+          f"regime cases {edges}")
     x = _rand((4, 64, 2048), torch.bfloat16, gen, device)
     w = _rand((4, 2048, 512), torch.bfloat16, gen, device)
     p = ops.fused_allgather_matmul(x, w, backend="torch")
     fault = _rel_l2(_agmm_fault(x, w, torch.bfloat16), p)
     check(fault > AGMM_REL_TOL[torch.bfloat16],
           f"AllGather-matmul fault control reads {fault} inside the gate")
-    return cases, errs, rels, fault
+    return cases, errs, rels, fault, edges
 
 
 def _hier_exact(device, tmp):
@@ -1968,8 +2033,9 @@ def _hier_main_path(device, tmp):
         torch.cuda.empty_cache()
     for label, n, rows, k, f in _agmm_main_shapes():
         x, w = mm_inputs[label]
+        ys = {}
         for odt in (torch.bfloat16, torch.float32):
-            y = ops.fused_allgather_matmul(x, w, out_dtype=odt)
+            y = ys[odt] = ops.fused_allgather_matmul(x, w, out_dtype=odt)
             p = ops.fused_allgather_matmul(x, w, out_dtype=odt,
                                            backend="torch")
             rel = _rel_l2(y, p)
@@ -1979,6 +2045,12 @@ def _hier_main_path(device, tmp):
             check(bool(torch.isfinite(y.float()).all())
                   and rel <= AGMM_REL_TOL[odt],
                   f"AllGather-matmul {label} {odt}: rel. L2 {rel}")
+        rounded = torch.equal(ys[torch.bfloat16],
+                              ys[torch.float32].to(torch.bfloat16))
+        mm_recs[-2]["equals_f32_out_rounded"] = rounded
+        check(rounded, f"AllGather-matmul {label}: bf16 out != its f32 out "
+              f"rounded")
+        del ys
     torch.cuda.synchronize()
     launches = dict(comm_utils.LAUNCHES)        # read just after
     executor = CudaExecutor.launches
@@ -2000,6 +2072,7 @@ def _hier_time(device, tmp):
     expanded, which the port never calls), beside the bound: every
     rank's input read once and output written once over HBM."""
     from repro_torch.core.comm import load_plan_set
+    from repro_torch.core.executor import THREADS
     from repro_torch.kernels import comm_utils, ops
     rows_out = []
     for name, shape in _grad_leaves().items():
@@ -2021,7 +2094,12 @@ def _hier_time(device, tmp):
         k_ms, k_cov = device_ms(kern, iters)
         k_wall = wall_ms(kern, iters)
         r_ms, r_cov = device_ms(lambda: plan(x), max(1, iters // 4))
-        del plan
+        # blocks a rank and threads of the RS, AR and AG launches
+        phases = [p.executor for p in (plan.rs_plan, plan.ar_plan,
+                                       plan.ag_plan)]
+        plan_blocks = [e.blocks for e in phases]
+        plan_threads = [THREADS] * len(phases)
+        del plan, phases
         torch.cuda.empty_cache()
         plan = load_plan_set(tmp / "grad_plans" / name, device=device,
                              backend="torch")[name]
@@ -2036,6 +2114,7 @@ def _hier_time(device, tmp):
             blocks_per_rank=comm_utils.workspace(
                 f"all_reduce_2ph/nodes{HIER_NN}", x).blocks,
             ms=k_ms, ms_wall=k_wall, plan_ms=r_ms, plan_plain_ms=rp_ms,
+            plan_blocks_per_rank=plan_blocks, plan_threads=plan_threads,
             plain_ms=p_ms, library_ms=l_ms,
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
             sleep_covered=dict(kernel=k_cov, plan=r_cov, plan_plain=rp_cov,
@@ -2052,10 +2131,14 @@ def _agmm_time(device, gen):
     the port never calls), beside the bound: the larger of 2 n (n rows) K
     F FLOP over the bf16 peak and x, w, out bytes over HBM."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.collective_matmul import decode_splits, regime
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     rows_out = []
     for label, n, rows, k, f in _agmm_main_shapes():
         x = _rand((n, rows, k), torch.bfloat16, gen, device)
         w = _rand((n, k, f), torch.bfloat16, gen, device)
+        mode = regime(n, rows)
+        splits = decode_splits(n, k, f, sms)[0] if mode == "decode" else None
 
         def lib(x=x, w=w):
             return torch.matmul(x.reshape(1, n * rows, k), w)
@@ -2079,7 +2162,7 @@ def _agmm_time(device, gen):
             t_bytes = nbytes / HBM_BYTES_PER_S
             rows_out.append(dict(
                 shape=label, n=n, rows=rows, K=k, F=f, out=str(odt)[6:],
-                ms=k_ms, ms_wall=k_wall, plain_ms=p_ms, library_ms=l_ms,
+                regime=mode, k_splits=splits, ms=k_ms, ms_wall=k_wall, plain_ms=p_ms, library_ms=l_ms,
                 bound_ms=max(t_ops, t_bytes) * 1e3, ops_ms=t_ops * 1e3,
                 bytes_ms=t_bytes * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -2100,7 +2183,8 @@ def phase_hierarchical(device, gen):
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
         tmp = pathlib.Path(d)
         cases_2ph, err_2ph, fault_2ph_grid = _2ph_vs_plain(gen, device)
-        cases_mm, errs_mm, rels_mm, fault_mm = _agmm_vs_plain(gen, device)
+        cases_mm, errs_mm, rels_mm, fault_mm, edges_mm = _agmm_vs_plain(
+            gen, device)
         exact = _hier_exact(device, tmp)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
@@ -2115,6 +2199,7 @@ def phase_hierarchical(device, gen):
          max_abs_err_2ph=err_2ph, fault_2ph_grid_max_abs_err=fault_2ph_grid,
          cases_agmm=cases_mm, max_abs_err_agmm=errs_mm,
          max_rel_l2_agmm=rels_mm, fault_agmm_rel_l2=fault_mm,
+         agmm_regime_edges=edges_mm,
          agmm_rel_tol={str(k)[6:]: v for k, v in AGMM_REL_TOL.items()},
          leaf_rel_tol=LEAF_REL_TOL, exact=exact, leaves=leaves,
          agmm_main=mm_main, launches=launches, peak_gb_main_path=peak_gb,
@@ -2196,6 +2281,8 @@ def main(argv=None) -> int:
             total = sum(mix.values())
             by_path[arch] = dict(
                 launches=counted[arch], launch_mix=mix,
+                blocks_per_rank={p: top[p]["blocks_per_rank"] for p in mix},
+                threads={p: top[p]["threads"] for p in mix},
                 **{k: sum(top[p][k] * c for p, c in mix.items()) / total
                    for k in keys})
         weight = {a: v["launches"] for a, v in by_path.items()
@@ -2207,7 +2294,10 @@ def main(argv=None) -> int:
                       else None),
             **{k: sum(by_path[a][k] * w for a, w in weight.items())
                / sum(weight.values()) for k in keys},
-            bound_by="bytes", by_path=by_path, per_shape=timing))
+            bound_by="bytes",
+            blocks_per_rank=sorted({t["blocks_per_rank"] for t in timing}),
+            threads=sorted({t["threads"] for t in timing}),
+            by_path=by_path, per_shape=timing))
     if hier is not None:
         # the executor's group view on phase 11's path, apart from the
         # decode mixes above: 14 hierarchical replays of 3 launches each.
@@ -2227,10 +2317,15 @@ def main(argv=None) -> int:
                               ("library_ms", "library_ms"))},
             bound_by="bytes", grid=f"{HIER_NN}x{HIER_L}",
             launches_per_replay=n_hier // len(ht),
+            blocks_per_rank=sorted({b for r in ht
+                                    for b in r["plan_blocks_per_rank"]}),
+            threads=sorted({t for r in ht for t in r["plan_threads"]}),
             per_shape=[dict(leaf=r["leaf"], replay_ms=r["plan_ms"],
                             plain_replay_ms=r["plan_plain_ms"],
                             bound_ms=r["bound_ms"],
-                            library_ms=r["library_ms"]) for r in ht]))
+                            library_ms=r["library_ms"],
+                            blocks_per_rank=r["plan_blocks_per_rank"],
+                            threads=r["plan_threads"]) for r in ht]))
     if coll is not None:
         # the decode-size row of each kernel: the 1PA LL decode AllReduce,
         # the two halves of the decode AllReduce through 2PA, and the
@@ -2301,7 +2396,8 @@ def main(argv=None) -> int:
     emit("total", seconds=time.perf_counter() - t0)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        dict(RECORD, kernels=kernels), indent=1))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

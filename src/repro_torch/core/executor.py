@@ -27,8 +27,11 @@ declaration vs. implementation):
   ``csrc/executor.cu``, the port of ``PallasExecutor._kernel``.
   :func:`encode` resolves every ``IndexExpr`` per rank at plan-build
   time into an int32 instruction table ``[n][ops][8]``; one cooperative
-  launch runs every rank as one block that walks its row of the table.
-  CUDA tensors only: there is no fallback.
+  launch runs every rank as ``nb`` blocks (:func:`blocks_per_rank`) of
+  ``THREADS`` threads, block ``b`` walking the rank's row of the table on
+  tile ``b`` of every chunk (contiguous tiles on 16-byte bounds, the last
+  taking the tail: ``csrc/primitives.cuh:tile``). CUDA tensors only:
+  there is no fallback.
 
 Both take ``x`` shaped ``(n, chunks_in * rows, cols)`` — rank ``r``'s
 payload is ``x[r]`` — and return ``(n, chunks_out * rows, cols)``.
@@ -367,6 +370,32 @@ FIELDS = 8
 MAX_RANKS = 16      # kMaxGridRanks in csrc/executor.cu: ranks of one launch
 MAX_BUFFERS = 8     # kMaxBufs
 MAX_OPERANDS = 32   # kMaxOperands
+#: threads a block of the kernel (at most kMaxThreads = 512)
+THREADS = 256
+#: chunk bytes a block owns, about: one 16-byte vector a thread
+TILE_BYTES = 16 * THREADS
+
+
+def blocks_per_rank(chunk_elems: int, esize: int, ranks: int,
+                    cap: int) -> int:
+    """Blocks a rank of one launch over ``ranks`` ranks (groups * n)
+    whose chunks hold ``chunk_elems`` elements of ``esize`` bytes: about
+    one block per ``TILE_BYTES`` of a chunk, at most ``cap // ranks``
+    (``cap``: the blocks of ``THREADS`` threads the card keeps resident at
+    once, from the occupancy query; the blocks spin on each other's
+    flags, so all must be resident), and no more blocks than non-empty
+    tiles."""
+    if not 1 <= ranks <= MAX_RANKS:
+        raise ValueError(f"the CUDA executor runs 1 to {MAX_RANKS} ranks per "
+                         f"launch, got {ranks}")
+    if cap < ranks:
+        raise RuntimeError(f"the card keeps {cap} executor blocks resident, "
+                           f"fewer than one per rank ({ranks})")
+    units = max(1, -(-chunk_elems * esize // 16))
+    want = max(1, min(cap // ranks, -(-chunk_elems * esize // TILE_BYTES),
+                      units))
+    per = -(-units // want)
+    return -(-units // per)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -575,13 +604,17 @@ class CudaExecutor:
     #: kernel launches made through any CudaExecutor (the main path's
     #: proof that it ran on the kernel)
     launches: int = 0
-    threads: int = 1024
 
     def __init__(self, program: Program):
         self.program = _frozen(program)
         self.encoded: Optional[EncodedProgram] = None
         self._bound: Optional[tuple] = None
         self._epoch = 0
+
+    @property
+    def blocks(self) -> Optional[int]:
+        """Blocks a rank of the bound launch (None before :meth:`bind`)."""
+        return None if self._bound is None else self._bound[10]
 
     def prepare(self, n: int) -> "CudaExecutor":
         self.encoded = encode(self.program, n)
@@ -591,7 +624,8 @@ class CudaExecutor:
              groups: int = 1) -> "CudaExecutor":
         """Allocate the device state for ``(groups * n, n_in*rows, cols)``
         payloads of ``dtype`` on ``device``: instruction table, flags (one
-        set per group), scratch."""
+        set per group, one word per tile), scratch; and fix the launch's
+        :attr:`blocks` a rank."""
         enc = self.encoded
         if enc is None:
             raise RuntimeError("CudaExecutor.bind before prepare(n)")
@@ -611,13 +645,18 @@ class CudaExecutor:
         scratch = [torch.empty((groups * n, p.chunks[b] * rows, cols),
                                dtype=dtype, device=device)
                    for b in enc.buffers[2:]]
-        group_flags = max(1, n * enc.n_flags + n * enc.n_barriers)
+        from repro_torch.kernels import build
+        cap = build.executor_library().dsl_executor_max_blocks(
+            _DTYPE_CODES[dtype], THREADS)
+        esize = torch.empty((), dtype=dtype).element_size()
+        blocks = blocks_per_rank(rows * cols, esize, groups * n, cap)
+        group_flags = max(1, n * (enc.n_flags + enc.n_barriers) * blocks)
         flags = torch.zeros(groups * group_flags, dtype=torch.int32,
                             device=device)
         ops = torch.from_numpy(enc.ops).to(device)
         opnds = torch.from_numpy(enc.operands).to(device)
         self._bound = (rows, cols, dtype, device, groups, scratch, flags,
-                       group_flags, ops, opnds)
+                       group_flags, ops, opnds, blocks)
         self._epoch = 0
         return self
 
@@ -648,7 +687,7 @@ class CudaExecutor:
                                                       x.device, groups):
             self.bind(rows, cols, x.dtype, x.device, groups=groups)
         (_, _, dtype, device, _, scratch, flags, group_flags, ops,
-         opnds) = self._bound
+         opnds, blocks) = self._bound
         x = x.contiguous()
         if enc.writes_input:
             x = x.clone()
@@ -669,8 +708,8 @@ class CudaExecutor:
         rc = lib.dsl_executor_launch(
             table, _DTYPE_CODES[dtype], n, groups, stride, ops.data_ptr(),
             ops.shape[1], opnds.data_ptr(), opnds.shape[1], flags.data_ptr(),
-            enc.n_flags, group_flags, self._epoch, chunk_elems, self.threads,
-            torch.cuda.current_stream(device).cuda_stream)
+            enc.n_flags, group_flags, self._epoch, chunk_elems, blocks,
+            THREADS, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
             raise RuntimeError(
                 f"dsl_executor launch failed for {p.name!r} (n={n}, "

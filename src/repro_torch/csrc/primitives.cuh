@@ -94,41 +94,52 @@ __device__ __forceinline__ void spin_until(const unsigned* flag, unsigned epoch)
 }
 
 // put — primitives.put / MemoryChannel.put: one-sided write of `count`
-// elements from my slot into the peer's slot. All threads of the block copy
-// with 16-byte vector stores when both ends are 16-byte aligned, and finish
-// the tail with scalar stores. Also serves the local COPY.
+// elements from my slot into the peer's slot. Threads tid of nthreads (all
+// of the block by default) copy with 16-byte vector stores when both ends
+// are 16-byte aligned, four vectors a thread loaded before any is stored (the
+// loads are in flight together), and finish the tail with scalar stores.
+// Also serves the local COPY.
 template <typename B>
-__device__ __forceinline__ void put(B* dst, const B* src, long long count) {
-  constexpr int V = 16 / sizeof(B);
+__device__ __forceinline__ void put(B* dst, const B* src, long long count, int tid,
+                                    int nthreads) {
+  constexpr int V = 16 / sizeof(B), U = 4;
   long long done = 0;
   if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
     const long long nv = count / V;
     const uint4* s = reinterpret_cast<const uint4*>(src);
     uint4* d = reinterpret_cast<uint4*>(dst);
-    for (long long i = threadIdx.x; i < nv; i += blockDim.x) d[i] = ld_cg(s + i);
+    for (long long i = tid; i < nv; i += static_cast<long long>(U) * nthreads) {
+      uint4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (i + u * nthreads < nv) v[u] = ld_cg(s + i + u * nthreads);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (i + u * nthreads < nv) d[i + u * nthreads] = v[u];
+    }
     done = nv * V;
   }
-  for (long long i = done + threadIdx.x; i < count; i += blockDim.x) dst[i] = ld_cg(src + i);
+  for (long long i = done + tid; i < count; i += nthreads) dst[i] = ld_cg(src + i);
+}
+
+template <typename B>
+__device__ __forceinline__ void put(B* dst, const B* src, long long count) {
+  put(dst, src, count, threadIdx.x, blockDim.x);
 }
 
 // signal — primitives.signal: once every thread's stores of the put are
-// issued (bar.sync), one thread fences at GPU scope and release-stores the
-// delivery's flag with this launch's epoch.
+// issued (bar.sync orders them before thread 0's next operations), one
+// thread release-stores the delivery's flag at GPU scope with this launch's
+// epoch. The release carries the block's stores; no separate fence.
 __device__ __forceinline__ void signal(unsigned* flag, unsigned epoch) {
   __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    st_release(flag, epoch);
-  }
+  if (threadIdx.x == 0) st_release(flag, epoch);
 }
 
 // wait — primitives.wait / wait_recv_into: one thread acquire-spins on the
-// delivery's flag, then the block proceeds and may read the slot.
+// delivery's flag, then (bar.sync) the block proceeds and may read the slot.
 __device__ __forceinline__ void wait(const unsigned* flag, unsigned epoch) {
-  if (threadIdx.x == 0) {
-    spin_until(flag, epoch);
-    __threadfence();
-  }
+  if (threadIdx.x == 0) spin_until(flag, epoch);
   __syncthreads();
 }
 
@@ -137,14 +148,14 @@ __device__ __forceinline__ void wait(const unsigned* flag, unsigned epoch) {
 __device__ __forceinline__ void flush() {}
 
 // barrier — primitives.device_barrier: every rank block release-stores its
-// own epoch-tagged flag, then waits for all n of them.
-__device__ __forceinline__ void barrier(unsigned* flags, int me, int n, unsigned epoch) {
+// own epoch-tagged flag flags[me * stride], then acquires all n of them
+// (stride > 1 interleaves the flags of several tiles' barriers).
+__device__ __forceinline__ void barrier(unsigned* flags, int me, int n, unsigned epoch,
+                                        int stride = 1) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    __threadfence();
-    st_release(flags + me, epoch);
-    for (int j = 0; j < n; ++j) spin_until(flags + j, epoch);
-    __threadfence();
+    st_release(flags + static_cast<long long>(me) * stride, epoch);
+    for (int j = 0; j < n; ++j) spin_until(flags + static_cast<long long>(j) * stride, epoch);
   }
   __syncthreads();
 }
@@ -216,25 +227,36 @@ __device__ __forceinline__ void wait_peers(const unsigned* flags, int me, int n,
 }
 
 // dst = srcs[0] + srcs[1] + ... (left fold, rounded per add), elementwise;
-// `srcs` lives in shared memory.
+// `srcs` lives in shared memory. Each vector step loads its operands kBatch
+// at a time, all of a batch before its adds, so the loads are in flight
+// together; the fold order is unchanged.
 template <typename T>
 __device__ __forceinline__ void reduce(typename Elem<T>::B* dst,
                                        const typename Elem<T>::B* const* srcs,
                                        int k, long long count) {
   using B = typename Elem<T>::B;
   constexpr int V = 16 / sizeof(B);
+  constexpr int kBatch = 8;
   bool aligned = (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
   for (int j = 0; j < k; ++j) aligned &= (reinterpret_cast<uintptr_t>(srcs[j]) & 15) == 0;
   long long done = 0;
   if (aligned) {
     const long long nv = count / V;
     for (long long i = threadIdx.x; i < nv; i += blockDim.x) {
-      union { uint4 v; B e[V]; } acc, o;
+      union U { uint4 v; B e[V]; };
+      U acc;
       acc.v = ld_cg(reinterpret_cast<const uint4*>(srcs[0]) + i);
-      for (int j = 1; j < k; ++j) {
-        o.v = ld_cg(reinterpret_cast<const uint4*>(srcs[j]) + i);
+      for (int j0 = 1; j0 < k; j0 += kBatch) {
+        U o[kBatch];
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc.e[e] = Elem<T>::add(acc.e[e], o.e[e]);
+        for (int u = 0; u < kBatch; ++u)
+          if (j0 + u < k) o[u].v = ld_cg(reinterpret_cast<const uint4*>(srcs[j0 + u]) + i);
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (j0 + u < k) {
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc.e[e] = Elem<T>::add(acc.e[e], o[u].e[e]);
+          }
       }
       reinterpret_cast<uint4*>(dst)[i] = acc.v;
     }

@@ -120,9 +120,12 @@ def executor_library() -> ctypes.CDLL:
         c.c_int,               # flag words a group
         c.c_uint,              # epoch
         c.c_longlong,          # elements per chunk
+        c.c_int,               # blocks per rank
         c.c_int,               # threads per block
         c.c_void_p,            # stream
     ]
+    lib.dsl_executor_max_blocks.restype = c.c_int
+    lib.dsl_executor_max_blocks.argtypes = [c.c_int, c.c_int]
     lib.dsl_executor_error_string.restype = c.c_char_p
     lib.dsl_executor_error_string.argtypes = [c.c_int]
     return lib
@@ -205,10 +208,11 @@ def allreduce_2ph_library() -> ctypes.CDLL:
 
 def collective_matmul_library() -> ctypes.CDLL:
     """``csrc/collective_matmul.cu``: ``ag_matmul_launch(x, w, out, xbuf,
-    flags, in_dtype, out_dtype, n, rows, K, F, w_per_rank, epoch, stream)``
-    and ``ag_matmul_tile(in_dtype, out_dtype, &bm, &bn)``."""
-    pint = ctypes.POINTER(ctypes.c_int)
+    flags, part, counters, in_dtype, out_dtype, n, rows, K, F, w_per_rank,
+    regime, splits, kt_split, epoch, stream)``. Its TMA descriptors come
+    from the driver's
+    ``cuTensorMapEncodeTiled``, which the library finds with ``dlopen`` /
+    ``dlsym`` in ``libcuda.so.1`` at run time: nothing links ``libcuda``."""
     return _collective_library("collective_matmul", {
-        "ag_matmul_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _U, _P],
-        "ag_matmul_tile": [_I, _I, pint, pint]})
+        "ag_matmul_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _U, _P]})

@@ -3,8 +3,11 @@
 ``tests/test_kernels_collective_matmul.py`` runs it (``shard_map``,
 interpret mode), on the same numpy-seeded inputs; the plain version's
 ring schedule, per-rank weights, two calls in a row, shape errors, and the
-matmul oracles of ``kernels/ref.py``. The CUDA kernel is held against the
-plain version on the card by ``chip_smoke.py`` phase 11.
+matmul oracles of ``kernels/ref.py``; the bf16 kernel's regime pick and a
+plain-torch model of its decode schedule (all-pairs gather, one product per
+column tile, k-splits summed in a fixed order) against the reference
+kernel and the plain version. The CUDA kernel is held against the plain
+version on the card by ``chip_smoke.py`` phase 11.
 
 Tolerances, each for its reason:
 * f32 in, f32 out: rtol 1e-5 — the same products summed in another
@@ -30,7 +33,10 @@ from repro.compat import shard_map
 from repro.kernels import ref as jax_ref
 from repro.kernels.collective_matmul import allgather_matmul as jax_agmm
 from repro_torch.kernels import comm_utils, ops, ref
-from repro_torch.kernels.collective_matmul import allgather_matmul_plain
+from repro_torch.kernels.collective_matmul import (DECODE_BN,
+                                                   DECODE_MAX_ROWS, K_TILE,
+                                                   allgather_matmul_plain,
+                                                   decode_splits, regime)
 
 # the suite runs in parallel worker processes: one intra-op thread each
 # keeps these tests from crowding the other workers' cores
@@ -191,3 +197,100 @@ def test_matmul_oracles_match_reference():
     np.testing.assert_array_equal(
         ref.hierarchical_all_reduce_ref(tx).numpy(),
         np.asarray(jax_ref.hierarchical_all_reduce_ref(jnp.asarray(x))))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's decode regime, modelled in plain torch
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n,rows,want", [
+    (4, 16, "decode"), (4, 17, "prefill"), (8, 8, "decode"),
+    (8, 9, "prefill"), (2, 32, "decode"), (2, 33, "prefill"),
+    (1, 64, "decode"), (1, 65, "prefill"), (4, 2, "decode"),
+    (4, 4096, "prefill")])
+def test_regime_threshold(n, rows, want):
+    """Decode exactly while the gathered rows fit one 64-row tile."""
+    assert (n * rows <= DECODE_MAX_ROWS) == (want == "decode")
+    assert regime(n, rows) == want
+
+
+@pytest.mark.parametrize("n,k,f,sms", [
+    (4, 2048, 1536, 132), (4, 2048, 512, 132), (2, 200, 200, 132),
+    (4, 136, 72, 132), (8, 128, 128, 132), (4, 2048, 8192, 132),
+    (4, 64, 64, 132), (4, 2048, 512, 8)])
+def test_decode_splits_fill_the_card(n, k, f, sms):
+    """Whole k-tiles, none empty, and at least one product item an SM
+    unless the k-tiles run out."""
+    splits, per = decode_splits(n, k, f, sms)
+    kt, tiles_n = -(-k // K_TILE), -(-f // DECODE_BN)
+    assert splits * per >= kt > (splits - 1) * per
+    assert n * tiles_n * splits >= sms or splits == kt
+    assert splits == 1 or n * tiles_n * (splits - 1) < sms
+
+
+def _decode_model(x, w, out_dtype, sms):
+    """The decode regime's schedule in plain torch: every rank puts its
+    rows into every peer's gather buffer (row block s from sender s),
+    then each (rank, 64-column tile) sums its k-splits' f32 products in
+    split order and casts once."""
+    n, rows, k = x.shape
+    f = w.shape[-1]
+    splits, per = decode_splits(n, k, f, sms)
+    span = per * K_TILE
+    xbuf = torch.zeros((n, n * rows, k), dtype=x.dtype)
+    for r in range(n):
+        for s in range(n):
+            xbuf[r, s * rows:(s + 1) * rows] = x[s]
+    out = torch.empty((n, n * rows, f), dtype=out_dtype)
+    for r in range(n):
+        a, wr = xbuf[r].float(), (w[r] if w.dim() == 3 else w).float()
+        for c0 in range(0, f, DECODE_BN):
+            parts = [a[:, s * span:(s + 1) * span]
+                     @ wr[s * span:(s + 1) * span, c0:c0 + DECODE_BN]
+                     for s in range(splits)]
+            acc = parts[0]
+            for p in parts[1:]:
+                acc = acc + p
+            out[r, :, c0:c0 + DECODE_BN] = acc.to(out_dtype)
+    return out
+
+
+DECODE_CASES = [i for i, c in enumerate(CASES) if regime(c[0], c[1]) ==
+                "decode"]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES,
+                         ids=[IDS[i] for i in DECODE_CASES])
+@pytest.mark.parametrize("sms", [132, 4])
+def test_decode_model_matches_jax_kernel(case, sms):
+    """The decode schedule (split over k to fill 132 SMs, or whole on a
+    4-SM card) against the reference Pallas kernel in interpret mode and
+    the plain ring version, at the file's tolerances."""
+    n, rows, k, f, dt, odt, _ = CASES[case]
+    x, w = (torch.from_numpy(a).to(TDT[dt]) for a in _inputs(case))
+    got = _decode_model(x, w, TDT[odt], sms)
+    np.testing.assert_allclose(got.float().numpy(), _ref_outputs(n)[case],
+                               **_tol(odt, k))
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        allgather_matmul_plain(x, w, out_dtype=TDT[odt]).float().numpy(),
+        **_tol(odt, k))
+
+
+@pytest.mark.parametrize("n,rows,k,f,per_rank", [
+    (4, 2, 2048, 512, True), (4, 16, 136, 72, False),
+    (2, 32, 200, 200, True), (8, 8, 128, 136, False)])
+@pytest.mark.parametrize("odt", ["float32", "bfloat16"])
+def test_decode_model_matches_plain_on_ragged_tiles(n, rows, k, f,
+                                                    per_rank, odt):
+    """bf16 in, k and F not multiples of the 64-deep, 64-wide tiles, the
+    main path's decode w_q shape: the split sums against the ring's one
+    product per chunk."""
+    r = np.random.RandomState(n * rows + f)
+    x = torch.from_numpy(r.randn(n, rows, k).astype(np.float32)).bfloat16()
+    w = torch.from_numpy((r.randn(*((n,) if per_rank else ()), k, f)
+                          / k ** 0.5).astype(np.float32)).bfloat16()
+    assert regime(n, rows) == "decode"
+    got = _decode_model(x, w, TDT[odt], 132)
+    want = allgather_matmul_plain(x, w, out_dtype=TDT[odt])
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               **_tol(odt, k))
