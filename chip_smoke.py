@@ -12,8 +12,9 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
 1. device — the card's name, and name + power limit from nvidia-smi;
 2. build — compiles every kernel of ``src/repro_torch/csrc`` into
    ``build/`` (one nvcc per source, started together), and fails unless
-   the AllGather-matmul library's SASS (``cuobjdump -sass``) holds wgmma
-   (HGMMA) and TMA loads (UTMALDG) and no ``mma.sync`` (HMMA);
+   the SASS (``cuobjdump -sass``) of the AllGather-matmul library and of
+   the flash-attention library each holds wgmma (HGMMA) and TMA loads
+   (UTMALDG) and no ``mma.sync`` (HMMA);
 3. kernel vs plain — the DSL-executor kernel against ``TorchExecutor``
    on the card, bit-equal in f32 and bf16, over every registry entry ×
    n in {2, 4, 8} × O0-O3 at three sizes (the last several blocks a rank
@@ -40,13 +41,17 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    ring AllGather): each op × algo × protocol bit-equal to its plain
    version over n in {2, 4, 8} × f32/bf16/int32 × the reference tests'
    shapes and an odd bf16 count, and at qwen3-1.7b's TP=4 serving sizes;
-   the LL flag test (chained calls and a repeated ``step`` on one
+   the ReduceScatter's LL and HB protocols each forced, and the op that
+   picks one by bytes, bit-equal to the plain version on both sides of
+   its threshold and at odd counts, n in {2, 4, 8}; the LL flag test (chained calls and a repeated ``step`` on one
    workspace); the main path — the collectives of serving qwen3-1.7b at
    TP=4 (a 57-AllReduce prefill of 8 × 16 tokens through 2PA, then
    decode steps of 57 1PA AllReduces and one ring logits AllGather),
    with every kernel's launches counted; and each kernel's device time
    at the serving sizes and over a per-rank size sweep at n=4, beside
-   its HBM bound, its plain version and a one-call PyTorch yardstick;
+   its HBM bound, its plain version and a one-call PyTorch yardstick
+   (the ReduceScatter with both protocols forced, over a sweep that adds
+   64-512 KiB);
 9. expert-parallel MoE — the all_to_all kernel (``csrc/alltoall.cu``)
    bit-equal to its plain version over n in {2, 4, 8} ×
    f32/bf16/int32 × the reference test's shapes, an odd count, the MoE
@@ -70,7 +75,8 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    (``csrc/flash_attention.cu``) against its plain version within the
    reference's tolerances (f32 2e-5, bf16 3e-2) and a relative L2 error
    of 1e-5 (f32) or 1e-2 (bf16) over the reference tests' grid, ragged
-   s, grouped KV heads, head dims 80 and 256 and the main path's shapes;
+   s, grouped KV heads, head dims 32, 80, 96 and 256 and the main path's
+   shapes;
    the main path — ``make_prefill_step`` and ``forward`` of qwen3-1.7b
    (8 x 2048 tokens), gemma3-12b (2 x 4096, all 48 layers, 40 of them
    windowed) and hubert-xlarge (4 x 1024 float frames) at full width and
@@ -81,8 +87,9 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    kernel's rounding inside both limits, a skipped key tile past 1e-2);
    qwen3-1.7b's fused prefill against the engine's token by token (8 x
    128 tokens; bf16 within 0.05, f32 at 4 layers within 1e-4 with equal
-   argmax); and the kernel's device time at each main-path shape beside
-   its bound, its plain version and ``scaled_dot_product_attention``;
+   argmax); and the kernel's device and wall time at each main-path
+   shape beside its bound, its plain version and
+   ``scaled_dot_product_attention`` (and its factor against that);
 11. hierarchical 2PH and AllGather-matmul — the 2PH AllReduce kernel
    (``csrc/allreduce_2ph.cu``) bit-equal to its plain version over
    (nodes, local) in {(2, 2), (2, 4), (4, 4)} x rows a chunk in {1, 8,
@@ -190,6 +197,10 @@ MAIN_DECODE_STEPS = 4
 # stops at 1 MiB, only the AllGathers go to 64 MiB
 SWEEP = {"1KiB": (4, 128), "32KiB": (8, 2048), "1MiB": (256, 2048),
          "16MiB": (4096, 2048), "64MiB": (16384, 2048)}
+# the ReduceScatter's sweep adds sizes around where its two protocols
+# (kernels/reducescatter_2pa.py:rs_protocol) cross, and times each forced
+RS_SWEEP = {"64KiB": (16, 2048), "128KiB": (32, 2048),
+            "256KiB": (64, 2048), "512KiB": (128, 2048)}
 # phase 9: expert-parallel MoE decode. Full width; the depth is cut to
 # 8 of phi3.5-moe's 32 layers: one layer holds about 1.30 G parameters
 # (2.60 GB in bf16), so 32 layers and the embeddings (about 84 GB) do
@@ -333,22 +344,31 @@ def phase_build():
     build.collective_matmul_library()
     ptxas = [ln.strip() for b in build.last_build.values()
              for ln in b["log"].splitlines() if "registers" in ln]
-    # the AllGather-matmul's bf16 product: wgmma (HGMMA) fed by TMA
-    # (UTMALDG), and no mma.sync (HMMA) left
-    sass = subprocess.run(
-        [str(pathlib.Path(build.nvcc()).parent / "cuobjdump"), "-sass",
-         str(libs["collective_matmul"])], capture_output=True, text=True,
-        check=True, timeout=300).stdout
-    agmm_sass = {op: len(re.findall(rf"\b{op}\b", sass))
-                 for op in ("HGMMA", "UTMALDG", "HMMA")}
+    # the bf16 products of the AllGather-matmul and of flash attention:
+    # wgmma (HGMMA) fed by TMA (UTMALDG), and no mma.sync (HMMA) left
+    sass = {}
+    for lib in ("collective_matmul", "flash_attention"):
+        text = subprocess.run(
+            [str(pathlib.Path(build.nvcc()).parent / "cuobjdump"), "-sass",
+             str(libs[lib])], capture_output=True, text=True, check=True,
+            timeout=300).stdout
+        sass[lib] = {op: len(re.findall(rf"\b{op}\b", text))
+                     for op in ("HGMMA", "UTMALDG", "HMMA")}
+    # ptxas's notes where it serialises a library's wgmmas (C7510 a call,
+    # C7513 a register a pending wgmma reads written early, C7520 a branch
+    # it cannot prove warp-uniform); a cached library has no log
+    serialized = {lib: sorted(set(re.findall(r"\((C75\d\d)\) Potential",
+                                             b["log"])))
+                  for lib, b in build.last_build.items() if b["log"] != "cached"}
     emit("build", seconds=round(time.perf_counter() - t, 3),
          libraries=sorted(str(p.relative_to(ROOT)) if p.is_relative_to(ROOT)
                           else str(p) for p in libs.values()),
-         ptxas=ptxas, collective_matmul_sass=agmm_sass)
-    check(agmm_sass["HGMMA"] > 0 and agmm_sass["UTMALDG"] > 0
-          and agmm_sass["HMMA"] == 0,
-          f"collective_matmul SASS: {agmm_sass} (want HGMMA and UTMALDG, "
-          f"no HMMA)")
+         ptxas=ptxas, collective_matmul_sass=sass["collective_matmul"],
+         flash_attention_sass=sass["flash_attention"],
+         wgmma_serialized=serialized)
+    for lib, ops in sass.items():
+        check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
+              f"{lib} SASS: {ops} (want HGMMA and UTMALDG, no HMMA)")
 
 
 def _decode_plans(device):
@@ -798,6 +818,53 @@ def _collectives_vs_plain(device, gen):
     return cases, errs
 
 
+def _rs_shapes(n, esz, limit):
+    """(rows a chunk, cols) of ReduceScatter inputs around ``limit`` bytes
+    a rank (n chunks): a tiny odd count, the largest at or under the limit
+    and the next over it with 512 columns, and the same with 511 columns
+    and an odd row count (an odd element count a chunk)."""
+    out = [(3, 129)]
+    for cols, step in ((512, 1), (511, 2)):
+        rows = limit // (n * cols * esz)
+        if step == 2 and rows % 2 == 0:
+            rows -= 1
+        out += [(rows, cols), (rows + step, cols)]
+    return out
+
+
+def _rs_protocols_vs_plain(device, gen):
+    """The ReduceScatter kernel with each protocol forced, and the public
+    op (which picks by bytes), bit-equal to the plain version at n in {2,
+    4, 8}, f32/bf16/int32, on both sides of LL_MAX_BYTES a rank and at odd
+    element counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import reducescatter_2pa as rs
+    cases, err = 0, 0.0
+    chosen = {"ll": 0, "hb": 0}
+    for n in (2, 4, 8):
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            esz = torch.empty((), dtype=dtype).element_size()
+            for rows, cols in _rs_shapes(n, esz, rs.LL_MAX_BYTES):
+                x = _rand((n, n * rows, cols), dtype, gen, device)
+                want = rs.reduce_scatter_2pa_plain(x)
+                proto = rs.rs_protocol(x[0].numel() * esz)
+                chosen[proto] += 1
+                for name, got in (("ll", rs._launch_rs(x, "ll")),
+                                  ("hb", rs._launch_rs(x, "hb")),
+                                  (f"op ({proto})", ops.reduce_scatter(x))):
+                    torch.cuda.synchronize()
+                    err = max(err, (got.double() - want.double()).abs().max()
+                              .item())
+                    check(got.dtype == want.dtype and torch.equal(got, want),
+                          f"reduce_scatter {name} != plain: n={n} {dtype} "
+                          f"{tuple(x.shape)}")
+                    cases += 1
+    check(chosen["ll"] > 0 and chosen["hb"] > 0,
+          f"the protocol sweep missed a side of the threshold: {chosen}")
+    return dict(cases=cases, max_abs_err=err, chosen=chosen,
+                ll_max_bytes=rs.LL_MAX_BYTES)
+
+
 def _collectives_main_path(device, gen):
     """The collectives of serving qwen3-1.7b at TP=4 through ``ops``, with
     the kernels' launch counts set to 0 just before and read just after;
@@ -857,6 +924,7 @@ def _collectives_time(device, gen):
     read once, each output written once, over all ranks), the plain
     version and a one-call PyTorch yardstick the port never calls."""
     from repro_torch.kernels import comm_utils, ops
+    from repro_torch.kernels import reducescatter_2pa as rs
     n = TP
     sizes = _serving_sizes()
     d = sizes["decode"][0][1]
@@ -871,7 +939,9 @@ def _collectives_time(device, gen):
         "reduce_scatter_2pa": [
             ("reduce_scatter", {},
              [("decode",) + sizes["decode"], ("prefill",) + sizes["prefill"]]
-             + [(k, v, torch.bfloat16) for k, v in SWEEP.items()
+             + [(k, v, torch.bfloat16)
+                for k, v in sorted({**SWEEP, **RS_SWEEP}.items(),
+                                   key=lambda kv: kv[1][0] * kv[1][1])
                 if k != "64MiB"])],
         "all_gather_2pa": [
             ("all_gather", dict(algo="allpairs"),
@@ -912,20 +982,31 @@ def _collectives_time(device, gen):
                             n, n * rows, cols).contiguous()
                 nbytes = (x.numel() + out.numel()) * x.element_size()
                 del out
+                rank_bytes = x[0].numel() * x.element_size()
                 iters = max(3, min(200, int(4e9 // nbytes)))
                 k_ms, k_cov = device_ms(kern, iters)
                 p_ms, p_cov = device_ms(plain, max(3, iters // 4))
                 l_ms, l_cov = device_ms(lib, iters)
+                ws_name = kernel
+                extra = {}
+                if kernel == "all_reduce_1pa":
+                    ws_name += f"/{'ll' if kw.get('use_ll', True) else 'hb'}"
+                elif kernel == "reduce_scatter_2pa":
+                    # both protocols forced, beside the one the op picks
+                    extra["protocol"] = rs.rs_protocol(rank_bytes)
+                    ws_name += f"/{extra['protocol']}"
+                    for proto in ("ll", "hb"):
+                        extra[f"{proto}_ms"] = device_ms(
+                            lambda x=x, proto=proto: rs._launch_rs(x, proto),
+                            iters)[0]
                 rows_out[kernel].append(dict(
                     op=op, **kw, size=label, n=n, rows=rows, cols=cols,
                     dtype=str(dtype).replace("torch.", ""),
-                    rank_bytes=x[0].numel() * x.element_size(),
-                    blocks_per_rank=comm_utils.workspace(
-                        f"{kernel}/{'ll' if kw.get('use_ll', True) else 'hb'}"
-                        if kernel == "all_reduce_1pa" else kernel, x).blocks,
+                    rank_bytes=rank_bytes,
+                    blocks_per_rank=comm_utils.workspace(ws_name, x).blocks,
                     ms=k_ms, ms_wall=wall_ms(kern, iters), plain_ms=p_ms,
                     library_ms=l_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                    bytes=nbytes, sleep_covered=dict(
+                    bytes=nbytes, **extra, sleep_covered=dict(
                         kernel=k_cov, plain=p_cov, library=l_cov)))
                 del x
                 torch.cuda.empty_cache()
@@ -935,10 +1016,14 @@ def _collectives_time(device, gen):
 def phase_collectives(device, gen):
     t = time.perf_counter()
     cases, errs = _collectives_vs_plain(device, gen)
+    protocols = _rs_protocols_vs_plain(device, gen)
+    errs["reduce_scatter_2pa"] = max(errs["reduce_scatter_2pa"],
+                                     protocols["max_abs_err"])
     main = _collectives_main_path(device, gen)
     timing = _collectives_time(device, gen)
-    emit("collectives", cases=cases, max_abs_err=errs, main_path=main,
-         shapes=timing, seconds=round(time.perf_counter() - t, 3))
+    emit("collectives", cases=cases, max_abs_err=errs,
+         rs_protocols=protocols, main_path=main, shapes=timing,
+         seconds=round(time.perf_counter() - t, 3))
     return errs, main["launches"], timing
 
 
@@ -1276,8 +1361,10 @@ def phase_moe(device, gen):
 def _fa_cases():
     """(b, h, h_kv, s, hd, dtype, causal, window, label) of the
     kernel-vs-plain grid: the reference tests' grid, its windows and
-    block-skip case, ragged s, KV-head groups, head dims 80 and 256 (label
-    None), and the main path's shapes (:func:`_fa_main_shapes`)."""
+    block-skip case, ragged s, KV-head groups, head dims 80 and 256, and
+    32 and 96 causal, bidirectional and windowed over KV-head groups 1, 2
+    and 4 at a ragged s (label None), and the main path's shapes
+    (:func:`_fa_main_shapes`): every head dim of HEAD_DIMS in bf16."""
     f32, bf16 = torch.float32, torch.bfloat16
     out = [(1, 2, 2, s, hd, dt, causal, None)
            for s, hd in ((256, 64), (512, 128)) for dt in (f32, bf16)
@@ -1294,6 +1381,12 @@ def _fa_cases():
             for dt in (f32, bf16)
             for hkv, causal, w in ((2, True, None), (4, False, None),
                                    (2, True, 100))]
+    out += [(2, h, hkv, s, hd, dt, causal, w) for hd in (32, 96)
+            for dt in (f32, bf16)
+            for h, hkv, s, causal, w in ((4, 4, 333, False, None),
+                                         (4, 2, 333, True, None),
+                                         (8, 2, 333, True, 100),
+                                         (8, 2, 12, False, 64))]
     out = [case + (None,) for case in out]
     out += [shape[:9] for shape in _fa_main_shapes()]
     return out
@@ -1646,9 +1739,11 @@ def _attention_pairs(s, causal, window) -> int:
 def _fa_time(device, gen):
     """Per main-path shape: the kernel's device time per launch beside its
     bound (the larger of 4 * hd FLOPs per unmasked pair and head over the
-    bf16 peak, and q, k, v read once and o written once over HBM), the
-    plain version, and the library yardstick the port never calls
-    (``scaled_dot_product_attention``; a boolean mask for a window)."""
+    bf16 peak, and q, k, v read once and o written once over HBM), its
+    wall time per call back to back (the host's tensor-map encoding
+    included), the plain version, and the library yardstick the port
+    never calls (``scaled_dot_product_attention``; a boolean mask for a
+    window), with the kernel's factor against it."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1668,8 +1763,10 @@ def _fa_time(device, gen):
             def lib(q=q, k=k, v=v, mask=mask):
                 return F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, enable_gqa=True)
-        k_ms, k_cov = device_ms(lambda: fa.flash_attention(
-            q, k, v, causal=causal, window=win), 20)
+        def kern(q=q, k=k, v=v, causal=causal, win=win):
+            return fa.flash_attention(q, k, v, causal=causal, window=win)
+
+        k_ms, k_cov = device_ms(kern, 20)
         p_ms, p_cov = device_ms(lambda: fa.flash_attention_plain(
             q, k, v, causal=causal, window=win), 3)
         l_ms, l_cov = device_ms(lib, 20)
@@ -1679,8 +1776,9 @@ def _fa_time(device, gen):
         t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
         rows.append(dict(
             shape=label, b=b, h=h, h_kv=hkv, s=s, hd=hd, causal=causal,
-            window=win, layers_per_forward=layers, ms=k_ms, plain_ms=p_ms,
-            library_ms=l_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+            window=win, layers_per_forward=layers, ms=k_ms,
+            ms_wall=wall_ms(kern, 20), plain_ms=p_ms, library_ms=l_ms,
+            vs_library=k_ms / l_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
             ops_ms=t_ops * 1e3, bytes_ms=t_bytes * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             flops=flops, bytes=nbytes, tflops_per_s=flops / k_ms / 1e9,

@@ -33,44 +33,6 @@
 
 namespace msccl {
 
-// Word w of a rank's buffer as LL carries it: one 4-byte element, or the
-// 2-byte elements 2w and 2w + 1 (zero past the end of an odd count).
-template <typename T>
-__device__ __forceinline__ unsigned load_word(const typename Elem<T>::B* p, long long count,
-                                              long long w) {
-  if constexpr (sizeof(typename Elem<T>::B) == 4) {
-    return p[w];
-  } else {
-    const unsigned lo = p[2 * w];
-    const unsigned hi = 2 * w + 1 < count ? p[2 * w + 1] : 0u;
-    return lo | (hi << 16);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ unsigned add_word(unsigned a, unsigned b) {
-  using B = typename Elem<T>::B;
-  if constexpr (sizeof(B) == 4) {
-    return Elem<T>::add(a, b);
-  } else {
-    const unsigned lo = Elem<T>::add(static_cast<B>(a & 0xFFFFu), static_cast<B>(b & 0xFFFFu));
-    const unsigned hi = Elem<T>::add(static_cast<B>(a >> 16), static_cast<B>(b >> 16));
-    return lo | (hi << 16);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_word(typename Elem<T>::B* p, long long count, long long w,
-                                           unsigned v) {
-  using B = typename Elem<T>::B;
-  if constexpr (sizeof(B) == 4) {
-    p[w] = v;
-  } else {
-    p[2 * w] = static_cast<B>(v & 0xFFFFu);
-    if (2 * w + 1 < count) p[2 * w + 1] = static_cast<B>(v >> 16);
-  }
-}
-
 // x, out: [n][count]; pk: [receiver][sender][words] packets.
 template <typename T>
 __global__ void __launch_bounds__(1024)

@@ -66,13 +66,12 @@
 // TMA descriptors are encoded on the host at each launch by the driver's
 // cuTensorMapEncodeTiled, looked up with dlopen/dlsym in the driver library
 // the process already holds (libcuda.so.1): the library links no libcuda.
-#include "primitives.cuh"
-
-#include <cuda.h>
-#include <dlfcn.h>
+// The mbarrier, TMA, descriptor and wgmma helpers are hopper.cuh's.
+#include "hopper.cuh"
 
 namespace agmm {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 template <typename T>
@@ -241,192 +240,6 @@ __global__ void __launch_bounds__(kSimtThreads, 2) ag_matmul_simt_kernel(SimtArg
 // ===========================================================================
 // bf16 in: TMA + wgmma
 // ===========================================================================
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-// arrive once and expect `bytes` of TMA completions on the barrier
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, unsigned parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(ok)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// Wait until the barrier's phase of parity `parity` has completed (bounded
-// like msccl::spin_until: a lost TMA or arrival traps instead of hanging).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const unsigned long long t0 = msccl::global_ns();
-  while (!mbar_try_wait(bar, parity))
-    if (msccl::global_ns() - t0 > msccl::kSpinTimeoutNs) msccl::spin_timeout(bar, parity, 0);
-}
-
-// generic-proxy global writes <-> async-proxy (TMA) global reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.global;" ::: "memory");
-}
-
-// TMA: the box at (c0, c1, c2) of `map` into shared memory, completing on
-// `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// Bulk copies (the TMA engine without a tensor map): `bytes` (a multiple of
-// 16, 16-byte aligned ends) from global into shared memory, completing on
-// `bar`; and from shared memory into global, in a bulk group of this thread.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
-          smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
-               "r"(smem_u32(src)), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-// wait until at most N of this thread's bulk groups are pending: reading
-// their shared memory (kRead) or complete
-template <int N, bool kRead>
-__device__ __forceinline__ void bulk_wait() {
-  if (kRead)
-    asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
-  else
-    asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// wgmma shared-memory descriptors, 128-byte swizzle (layout type 1 at bit
-// 62); addresses and offsets in 16-byte units.
-__device__ __forceinline__ uint64_t desc_field(uint32_t bytes) { return (bytes & 0x3FFFF) >> 4; }
-
-// K-major (x): rows of 64 k (128 bytes), 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t desc_k_major(const void* p) {
-  return desc_field(smem_u32(p)) | (desc_field(16) << 16) | (desc_field(1024) << 32) |
-         (1ull << 62);
-}
-
-// MN-major (w): rows of 64 columns (one TMA box, 128 bytes) for each k,
-// 8-k groups 1024 bytes apart, 64-column blocks `lbo` bytes apart
-__device__ __forceinline__ uint64_t desc_mn_major(const void* p, uint32_t lbo) {
-  return desc_field(smem_u32(p)) | (desc_field(lbo) << 16) | (desc_field(1024) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// D[64 x 256] (f32) += A[64 x 16] (K-major) * B[16 x 256] (MN-major), both bf16 in
-// shared memory behind descriptors; every thread holds 128 of D.
-__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// D[64 x 64] (f32) += A[64 x 16] (K-major) * B[16 x 64] (MN-major), both bf16 in
-// shared memory behind descriptors; every thread holds 32 of D.
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <int kBN>
-__device__ __forceinline__ void wgmma_tile(float (&d)[kBN / 2], uint64_t da, uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_tile<256>(float (&d)[128], uint64_t da, uint64_t db) {
-  wgmma_n256(d, da, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_tile<64>(float (&d)[32], uint64_t da, uint64_t db) {
-  wgmma_n64(d, da, db);
-}
 
 struct TmaArgs {
   CUtensorMap x_map;     // x {K, rows, n}
@@ -558,7 +371,7 @@ __global__ void __launch_bounds__(Cfg<kWG, kBN, kStages, kFwd>::kThreads, kDecod
     }
     mbar_init(&fwd_bar[0], 1);
     mbar_init(&fwd_bar[1], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -684,7 +497,7 @@ __global__ void __launch_bounds__(Cfg<kWG, kBN, kStages, kFwd>::kThreads, kDecod
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)  // 16 k a wgmma: 32 bytes of an x row, 16 w rows
-        wgmma_tile<kBN>(acc, da + 2 * kk, db + 128 * kk);
+        Wgmma<kBN>::template ss<1>(acc, da + 2 * kk, db + 128 * kk, 1);
       wgmma_commit();
       wgmma_wait<1>();  // the previous k-tile's products are done with their stage
       if (j > 0 && lane == 0) mbar_arrive(&empty[(it + j - 1) % kStages]);
@@ -785,37 +598,6 @@ __global__ void __launch_bounds__(Cfg<kWG, kBN, kStages, kFwd>::kThreads, kDecod
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, from the libcuda.so.1 the CUDA
-// runtime has loaded; nullptr without a driver.
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-    return h == nullptr ? nullptr : reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// A bf16 3-D tensor {d0 (contiguous), d1, d2}, boxes of {b0, b1, 1}, 128-byte
-// swizzle, zero fill out of bounds.
-inline bool make_map(CUtensorMap* m, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
-                     uint32_t b0, uint32_t b1) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
-  const cuuint32_t box[3] = {b0, b1, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // The most blocks of `fn` (with `smem` bytes of dynamic shared memory) the
 // card keeps resident at once: every block waits on others' flags.
 inline cudaError_t resident_blocks(const void* fn, int threads, size_t smem, int& blocks) {

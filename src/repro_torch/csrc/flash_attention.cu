@@ -2,47 +2,86 @@
 // over whole sequences from position 0, grouped-query heads read in place.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py: _fa_kernel (:37,
-// pallas_call at :111, flash_attention). One block per (batch x head, 64-row
-// query block); KV tiles stream through shared memory while the running max,
+// pallas_call at :111, flash_attention). One block per (batch x head, query
+// block); KV tiles stream through shared memory while the running max,
 // denominator and accumulator stay in f32 registers (the online-softmax
 // recurrence). KV tiles wholly outside the causal limit or the window are
 // never visited (the reference's lo/hi block range), so a sliding-window layer
 // costs O(s * window), not O(s^2). Masking is the reference's: rel = q_pos -
-// k_pos, causal keeps rel >= 0, a window keeps rel < window, masked logits are
-// -1e30, the output is acc / max(l, 1e-30). Keys past a ragged s are masked
-// and query rows past it never stored. Query head i reads KV head
-// i / (h / h_kv), so broadcast K/V are never materialised.
+// k_pos, causal keeps rel >= 0, a window keeps rel < window, the output is
+// acc / max(l, 1e-30). Keys past a ragged s are masked and query rows past it
+// never stored. Query head i reads KV head i / (h / h_kv), so broadcast K/V
+// are never materialised.
 //
 // Bound on an H100: at the model shapes, tensor-core operations (4 * hd per
 // unmasked (query, key) pair and head over 989 TFLOP/s in bf16); at short s,
 // the bytes of q, k, v read once and o written once over 3.35 TB/s.
 //
 // Two kernels, chosen by the element type:
-// * bf16 - fa_mma_kernel: 4 warps, 16 query rows each. S = Q K^T and O += P V
-//   run on the tensor cores by mma.sync m16n8k16 (bf16 in, f32 accumulate);
-//   the S accumulator fragment is the A fragment of P V, so P stays in
-//   registers; V's fragments come by ldmatrix.trans. Q, K and V tiles sit in
-//   shared memory, loaded by cp.async with zero fill past s, rows padded by 16
-//   bytes so every fragment load is free of bank conflicts.
+// * bf16 - fa_wgmma_kernel, warp-specialised, 384 threads: one producer
+//   warpgroup, of which one thread issues every TMA load (Q once, then K and
+//   V tiles into a ring of two shared-memory stages with full and empty
+//   mbarriers, K and V released apart), and two consumer warpgroups of 64
+//   query rows each, so a block covers 128 rows (setmaxnreg moves registers
+//   from the producer to the consumers). Per KV tile a consumer warpgroup
+//   runs S = Q K^T as wgmma.mma_async with both operands in shared memory
+//   (K-major), the softmax in f32 registers, and O += P V as a wgmma with P
+//   in registers as bf16 (the S accumulator fragment is the A fragment of
+//   P V) and V an MN-major operand. S of tile j and P V of tile j - 1 are
+//   issued together, so tile j's softmax runs under tile j - 1's product;
+//   the two warpgroups' softmaxes and products also overlap each other. The
+//   softmax works in base 2: ex2.approx of one FMA, logit * scale * log2(e)
+//   - the scaled running max, row maxima and sums in four independent
+//   chains; the accumulator is rescaled on every tile (alpha is 1 where the
+//   max did not move). Masked logits are -inf (a row's max stays -inf only
+//   while all its keys so far are masked; it is then taken as 0, so no
+//   inf - inf arises). Tiles are of three classes per 128-row query block
+//   (kernels/flash_attention.py:tile_class mirrors it): outside block_range,
+//   never loaded; interior (every key < s, wholly before the block's first
+//   row when causal, wholly inside the window of its last row), which runs
+//   no mask; the rest (the causal diagonal, the window's lower edge, the
+//   ragged end of s), masked element by element. Query blocks run longest
+//   first. O leaves through shared memory (the warpgroup's own Q rows) and
+//   TMA stores. hd 32 keeps 64-byte swizzled rows (32 bf16), every other
+//   head dim 128-byte rows (64 bf16) and as many column boxes as hd needs.
 // * f32 - fa_simt_kernel: true f32 FMAs (the tensor cores would round to
-//   TF32). 256 threads, each owning 4 query rows x hd / 16 output columns,
-//   tiles held as f32 in shared memory and read as float4.
-// Neither pipelines its tile loads nor uses wgmma/TMA yet: a first, simple
-// kernel.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+//   TF32). 256 threads, 64 query rows a block, each thread owning 4 query
+//   rows x hd / 16 output columns, tiles held as f32 in shared memory and
+//   read as float4, loads not pipelined.
+//
+// Where the bf16 kernel is delicate:
+// 1. Ragged s. Every tensor map is 3-D, {hd, s, b * h} for q and o and
+//    {hd, s, b * h_kv} for k and v, so rows past s inside a head read as TMA
+//    zero fill, never as the next head's rows; their keys are masked, and
+//    the TMA store drops query rows past s.
+// 2. Head dims off the 64-column box (80, 96): the last box is partly zero
+//    fill; S issues only hd / 16 k-steps, P V runs wgmma with N = hd, and
+//    the store drops the fill columns.
+// 3. hd 256: the O accumulator alone is 128 f32 registers a consumer thread,
+//    so its KV tile is 64 keys (S: 32 registers), and Q (64 KB) and two
+//    stages of K and V (64 KB each) fit 227 KB; each tile is loaded as four
+//    64-column boxes (a box row is at most 128 bytes under the swizzle).
+// 4. Accumulator fences (hopper.cuh fence_acc, fence_frag) around each
+//    wgmma stage, so the compiler neither reads S or O nor reuses P's
+//    registers while a product is in flight. And ptxas serialises every
+//    wgmma of a kernel (each waited for before the next issues: the
+//    tensor cores then idle under every softmax) on any of: a wgmma near a
+//    branch it cannot prove warp-uniform (C7520: hence warpgroup_index, a
+//    PTX-loop mbar_wait and a predicated mbar_arrive_if), a call (C7510),
+//    or a register a pending wgmma reads written before it is waited for
+//    (C7513: hence P is packed only after P V is done). Build logs show
+//    these as ptxas "Potential Performance Loss" notes.
+// 5. Host cost: the four tensor maps are encoded on every call (a few us),
+//    beside a launch of tens to hundreds of us at prefill.
+#include "hopper.cuh"
 
-#include "mma_bf16.cuh"
+#include <math.h>
 
 namespace fa {
 
-using namespace frag;
-using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-constexpr float kNeg = -1e30f;
-constexpr int kBQ = 64;  // query rows per block, both kernels
+constexpr float kNeg = -1e30f;  // masked logit of the f32 kernel, as the reference's
 
 struct Args {
   const void* q;
@@ -55,16 +94,17 @@ struct Args {
   float scale;
 };
 
-// KV tiles [lo, hi) of `bk` keys that the query block at q_start visits.
-__device__ __forceinline__ void block_range(const Args& a, int q_start, int bk, int& lo,
-                                            int& hi) {
-  lo = a.window > 0 ? max(q_start - (a.window - 1), 0) / bk : 0;
-  hi = a.causal ? min(q_start + kBQ - 1, a.s - 1) / bk + 1 : (a.s + bk - 1) / bk;
+// KV tiles [lo, hi) of `bk` keys that the query block of `bq` rows at
+// q_start visits.
+__device__ __forceinline__ void block_range(int s, int causal, int window, int q_start, int bq,
+                                            int bk, int& lo, int& hi) {
+  lo = window > 0 ? max(q_start - (window - 1), 0) / bk : 0;
+  hi = causal ? min(q_start + bq - 1, s - 1) / bk + 1 : (s + bk - 1) / bk;
 }
 
-__device__ __forceinline__ bool keep(const Args& a, int qp, int kp) {
+__device__ __forceinline__ bool keep(int s, int causal, int window, int qp, int kp) {
   const int rel = qp - kp;
-  return kp < a.s && (!a.causal || rel >= 0) && (a.window <= 0 || rel < a.window);
+  return kp < s && (!causal || rel >= 0) && (window <= 0 || rel < window);
 }
 
 // Base pointers of this block's head: q/o rows of (batch, head), k/v rows of
@@ -93,13 +133,15 @@ __device__ __forceinline__ float shfl_xor(float x, int m) {
 // ---------------------------------------------------------------------------
 // f32: SIMT
 // ---------------------------------------------------------------------------
+constexpr int kSimtBQ = 64;  // query rows a block of the f32 kernel
+
 template <int HD>
 struct SimtCfg {
   static constexpr int kThreads = 256;
   static constexpr int kBK = HD <= 128 ? 32 : 16;  // keys per tile
   static constexpr int kLD = HD + 4;   // float row: 16-byte aligned, float4 reads conflict-free
   static constexpr int kLDP = kBK + 4;
-  static constexpr size_t kSmem = sizeof(float) * (kBQ * kLD + 2 * kBK * kLD + kBQ * kLDP);
+  static constexpr size_t kSmem = sizeof(float) * (kSimtBQ * kLD + 2 * kBK * kLD + kSimtBQ * kLDP);
 };
 
 // rows [row0, row0 + ROWS) of a (s, HD) f32 matrix into dst (row stride LD),
@@ -122,17 +164,17 @@ __global__ void __launch_bounds__(256) fa_simt_kernel(Args a) {
   using C = SimtCfg<HD>;
   constexpr int BK = C::kBK, LD = C::kLD, LDP = C::kLDP, NJ = HD / 16, KJ = BK / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sq = reinterpret_cast<float*>(smem_raw);  // [kBQ][LD], q * scale
-  float* sk = sq + kBQ * LD;                        // [BK][LD]
+  float* sq = reinterpret_cast<float*>(smem_raw);  // [kSimtBQ][LD], q * scale
+  float* sk = sq + kSimtBQ * LD;                        // [BK][LD]
   float* sv = sk + BK * LD;                         // [BK][LD]
-  float* sp = sv + BK * LD;                         // [kBQ][LDP], probabilities
+  float* sp = sv + BK * LD;                         // [kSimtBQ][LDP], probabilities
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;  // rows ty*4.., cols tx + 16 j
-  const int q_start = (gridDim.y - 1 - blockIdx.y) * kBQ;    // longest blocks first
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * kSimtBQ;    // longest blocks first
   const Heads<float> p(a, blockIdx.x, HD);
 
-  load_f32<HD, kBQ, LD, 256>(sq, p.q, q_start, a.s, a.scale, tid);
+  load_f32<HD, kSimtBQ, LD, 256>(sq, p.q, q_start, a.s, a.scale, tid);
   int lo, hi;
-  block_range(a, q_start, BK, lo, hi);
+  block_range(a.s, a.causal, a.window, q_start, kSimtBQ, BK, lo, hi);
   float acc[4][NJ], m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -175,7 +217,7 @@ __global__ void __launch_bounds__(256) fa_simt_kernel(Args a) {
       float mx = kNeg;
 #pragma unroll
       for (int j = 0; j < KJ; ++j) {
-        if (!keep(a, qp, k_start + tx + 16 * j)) sc[i][j] = kNeg;
+        if (!keep(a.s, a.causal, a.window, qp, k_start + tx + 16 * j)) sc[i][j] = kNeg;
         mx = fmaxf(mx, sc[i][j]);
       }
 #pragma unroll
@@ -227,149 +269,323 @@ __global__ void __launch_bounds__(256) fa_simt_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync
+// bf16: wgmma + TMA, warp-specialised
 // ---------------------------------------------------------------------------
+constexpr int kBQ = 128;         // query rows a block: two consumer warpgroups of 64
+constexpr int kWgThreads = 384;  // consumer warpgroups 0, 1; producer warpgroup 2
+constexpr int kStages = 2;       // K/V stages in flight
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * 24 + 256 * 240 <= 65536
+
 template <int HD>
-struct MmaCfg {
-  static constexpr int kThreads = 128;
-  static constexpr int kBK = HD <= 128 ? 64 : 32;  // keys per tile
-  static constexpr int kLD = HD + 8;  // bf16 row: 16-byte aligned, fragment loads conflict-free
-  static constexpr size_t kSmem = sizeof(bf16) * (kBQ + 2 * kBK) * kLD;
+struct WgCfg {
+  static constexpr int kSw = HD == 32 ? 64 : 128;  // swizzle: bytes of a box row
+  static constexpr int kBoxCols = kSw / 2;         // bf16 columns of a box
+  static constexpr int kBoxes = (HD + kBoxCols - 1) / kBoxCols;
+  static constexpr int kBK = HD > 128 ? 64 : 128;  // keys of a KV tile
+  static constexpr int kQBox = kBQ * kSw, kKVBox = kBK * kSw;  // bytes of one box
+  static constexpr int kQBytes = kBoxes * kQBox, kKVBytes = kBoxes * kKVBox;
+  // 1024 bytes of alignment slack, Q, K and V stages, 1 + 4 * kStages mbarriers
+  static constexpr size_t kSmem =
+      1024 + kQBytes + 2 * kStages * static_cast<size_t>(kKVBytes) + 8 * (1 + 4 * kStages);
+  static_assert(HD % 16 == 0 && kBoxCols % 16 == 0, "k-steps of 16 inside a box");
+  static_assert(kSmem <= 232448, "shared memory of one block");
 };
 
-// rows [row0, row0 + ROWS) of a (s, HD) bf16 matrix into dst (row stride LD)
-template <int HD, int ROWS, int LD>
-__device__ __forceinline__ void load_bf16(bf16* dst, const bf16* src, int row0, int s, int tid) {
-  constexpr int kPerRow = HD / 8;
-  for (int i = tid; i < ROWS * kPerRow; i += 128) {
-    const int r = i / kPerRow, c = (i % kPerRow) * 8;
-    const bool ok = row0 + r < s;
-    cp_async16(dst + r * LD + c, ok ? src + static_cast<size_t>(row0 + r) * HD + c : src, ok);
-  }
+struct TmaArgs {
+  CUtensorMap q_map;  // q {hd, s, b * h}, boxes {kBoxCols, kBQ}
+  CUtensorMap k_map;  // k {hd, s, b * h_kv}, boxes {kBoxCols, kBK}
+  CUtensorMap v_map;  // v, as k
+  CUtensorMap o_map;  // o {hd, s, b * h}, boxes {kBoxCols, 64}: a warpgroup's rows
+  int h, hkv, s, causal, window;
+  float scale_log2;   // hd^-0.5 * log2(e)
+};
+
+// 2^x by the SFU (ex2.approx, flushing denormal results to 0; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Wait at named barrier `id` until `count` threads have.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(128) fa_mma_kernel(Args a) {
-  using C = MmaCfg<HD>;
-  // S n-blocks per tile, k-steps of S, n-blocks of O
-  constexpr int BK = C::kBK, LD = C::kLD, NB = BK / 8, KS = HD / 16, OB = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LD]
-  bf16* sk = sq + kBQ * LD;                      // [BK][LD]
-  bf16* sv = sk + BK * LD;                       // [BK][LD]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // fragment row group, thread in group
-  const int q_start = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest blocks first
-  const Heads<bf16> p(a, blockIdx.x, HD);
-  const int r0 = warp * 16 + g;  // block row of accumulator elements 0, 1 (2, 3: r0 + 8)
-  const int qp0 = q_start + r0, qp1 = qp0 + 8;
-
-  load_bf16<HD, kBQ, LD>(sq, p.q, q_start, a.s, tid);  // waited for with the first tile
-  int lo, hi;
-  block_range(a, q_start, BK, lo, hi);
-  float oacc[OB][4];
-#pragma unroll
-  for (int nb = 0; nb < OB; ++nb) oacc[nb][0] = oacc[nb][1] = oacc[nb][2] = oacc[nb][3] = 0.f;
-  // running max of rows qp0, qp1; this thread's share of their denominators
-  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
-  for (int kb = lo; kb < hi; ++kb) {
-    const int k_start = kb * BK;
-    __syncthreads();  // the previous tile's readers are done
-    load_bf16<HD, BK, LD>(sk, p.k, k_start, a.s, tid);
-    load_bf16<HD, BK, LD>(sv, p.v, k_start, a.s, tid);
-    cp_async_wait_all();
-    __syncthreads();
-
-    float sacc[NB][4];
-#pragma unroll
-    for (int j = 0; j < NB; ++j) sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const bf16* qa = sq + r0 * LD + ks * 16 + 2 * t;
-      const uint32_t a0 = ld32(qa), a1 = ld32(qa + 8 * LD), a2 = ld32(qa + 8),
-                     a3 = ld32(qa + 8 * LD + 8);
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        const bf16* kr = sk + (j * 8 + g) * LD + ks * 16 + 2 * t;
-        mma_bf16(sacc[j], a0, a1, a2, a3, ld32(kr), ld32(kr + 8));
-      }
+__global__ void __launch_bounds__(kWgThreads, 1) fa_wgmma_kernel(const __grid_constant__ TmaArgs a) {
+  using C = WgCfg<HD>;
+  constexpr int BK = C::kBK, kSw = C::kSw, kSteps = C::kBoxCols / 16;  // k-steps a box
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled TMA boxes and wgmma descriptors want 1024-byte aligned tiles
+  unsigned char* sq = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sk = sq + C::kQBytes;             // [kStages][kKVBytes]
+  unsigned char* sv = sk + kStages * C::kKVBytes;  // [kStages][kKVBytes]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sv + kStages * C::kKVBytes);
+  uint64_t* k_full = q_full + 1;       // [kStages] each
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);  // the producer's expect_tx arrival + the bytes
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&v_empty[s], 8);
     }
-
-    float mx0 = kNeg, mx1 = kNeg;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const int kp = k_start + j * 8 + 2 * t;
-      sacc[j][0] = keep(a, qp0, kp) ? sacc[j][0] * a.scale : kNeg;
-      sacc[j][1] = keep(a, qp0, kp + 1) ? sacc[j][1] * a.scale : kNeg;
-      sacc[j][2] = keep(a, qp1, kp) ? sacc[j][2] * a.scale : kNeg;
-      sacc[j][3] = keep(a, qp1, kp + 1) ? sacc[j][3] * a.scale : kNeg;
-      mx0 = fmaxf(mx0, fmaxf(sacc[j][0], sacc[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(sacc[j][2], sacc[j][3]));
-    }
-    // the 4 threads of a row group hold the row between them
-    mx0 = fmaxf(mx0, shfl_xor(mx0, 1));
-    mx0 = fmaxf(mx0, shfl_xor(mx0, 2));
-    mx1 = fmaxf(mx1, shfl_xor(mx1, 1));
-    mx1 = fmaxf(mx1, shfl_xor(mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    uint32_t pa[NB][2];  // P in bf16 pairs: [j][0] row qp0, [j][1] row qp1
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const float p0 = expf(sacc[j][0] - mn0), p1 = expf(sacc[j][1] - mn0);
-      const float p2 = expf(sacc[j][2] - mn1), p3 = expf(sacc[j][3] - mn1);
-      rs0 += p0 + p1;
-      rs1 += p2 + p3;
-      pa[j][0] = pack_bf16(p0, p1);
-      pa[j][1] = pack_bf16(p2, p3);
-    }
-    l0 = l0 * al0 + rs0;
-    l1 = l1 * al1 + rs1;
-#pragma unroll
-    for (int nb = 0; nb < OB; ++nb) {
-      oacc[nb][0] *= al0;
-      oacc[nb][1] *= al0;
-      oacc[nb][2] *= al1;
-      oacc[nb][3] *= al1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a0 = pa[2 * kk][0], a1 = pa[2 * kk][1], a2 = pa[2 * kk + 1][0],
-                     a3 = pa[2 * kk + 1][1];
-      // lanes 0-15 address keys kk*16 + lane at columns nb*8, lanes 16-31 the same
-      // keys at nb*8 + 8: b0, b1 of n-blocks nb and nb + 1
-      const bf16* vr = sv + (kk * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-#pragma unroll
-      for (int nb = 0; nb < OB; nb += 2) {
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4_trans(b0, b1, b2, b3, vr + nb * 8);
-        mma_bf16(oacc[nb], a0, a1, a2, a3, b0, b1);
-        mma_bf16(oacc[nb + 1], a0, a1, a2, a3, b2, b3);
-      }
-    }
+    mbar_init_fence();
   }
-  l0 += shfl_xor(l0, 1);
-  l0 += shfl_xor(l0, 2);
-  l1 += shfl_xor(l1, 1);
-  l1 += shfl_xor(l1, 2);
-  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  __syncthreads();
+
+  const int bh = blockIdx.x;
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest blocks first
+  int lo, hi;
+  block_range(a.s, a.causal, a.window, q_start, kBQ, BK, lo, hi);
+  const int nt = hi - lo;
+  const int wg = warpgroup_index();
+
+  if (wg == 2) {
+    // ---- producer: one thread issues every TMA load of the block ----
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      const int kvh = (bh / a.h) * a.hkv + (bh % a.h) / (a.h / a.hkv);
+      mbar_expect_tx(q_full, C::kQBytes);
+      for (int x = 0; x < C::kBoxes; ++x)
+        tma_load(sq + x * C::kQBox, &a.q_map, q_full, x * C::kBoxCols, q_start, bh);
+      for (int j = 0; j < nt; ++j) {
+        const int st = j % kStages, k0 = (lo + j) * BK;
+        const unsigned free_ph = ((j / kStages) & 1) ^ 1;  // the stage's last readers are done
+        mbar_wait(&k_empty[st], free_ph);
+        mbar_expect_tx(&k_full[st], C::kKVBytes);
+        for (int x = 0; x < C::kBoxes; ++x)
+          tma_load(sk + st * C::kKVBytes + x * C::kKVBox, &a.k_map, &k_full[st],
+                   x * C::kBoxCols, k0, kvh);
+        mbar_wait(&v_empty[st], free_ph);
+        mbar_expect_tx(&v_full[st], C::kKVBytes);
+        for (int x = 0; x < C::kBoxes; ++x)
+          tma_load(sv + st * C::kKVBytes + x * C::kKVBox, &a.v_map, &v_full[st],
+                   x * C::kBoxCols, k0, kvh);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows [64 wg, 64 wg + 64) ----
+    setmaxnreg_inc<kConsumerRegs>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int row0 = q_start + wg * 64 + warp * 16 + lane / 4;  // fragment rows row0, row0 + 8
+    const int col0 = 2 * (lane % 4);                            // fragment columns col0, col0 + 1
+    const float c = a.scale_log2;
+    float o[HD / 2];
 #pragma unroll
-  for (int nb = 0; nb < OB; ++nb) {
-    const int col = nb * 8 + 2 * t;
-    if (qp0 < a.s)
-      *reinterpret_cast<__nv_bfloat162*>(p.o + static_cast<size_t>(qp0) * HD + col) =
-          __floats2bfloat162_rn(oacc[nb][0] / d0, oacc[nb][1] / d0);
-    if (qp1 < a.s)
-      *reinterpret_cast<__nv_bfloat162*>(p.o + static_cast<size_t>(qp1) * HD + col) =
-          __floats2bfloat162_rn(oacc[nb][2] / d1, oacc[nb][3] / d1);
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    // running max (raw logits) and this thread's share of the denominator
+    // of rows row0, row0 + 8
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    float sc[BK / 2];           // S of the current tile
+    uint32_t pa[BK / 16][4];    // P of the current tile, bf16 A fragments
+    const uint64_t dq = desc_k_major<kSw>(sq + wg * 64 * kSw);
+
+    // S = Q K_j^T (box x, 16-column step w of q's and k's rows), and O +=
+    // P V_j (16 keys a k-step, kSw-byte rows of V): issued and committed,
+    // not waited for. Their tiles are waited for, and the descriptors
+    // made, before the wgmma fence: ptxas serialises wgmmas between which
+    // other instructions define a wgmma's inputs (C7513).
+    auto wait_k = [&](int j) { mbar_wait(&k_full[j % kStages], (j / kStages) & 1); };
+    auto wait_v = [&](int j) { mbar_wait(&v_full[j % kStages], (j / kStages) & 1); };
+    auto desc_k = [&](int j) { return desc_k_major<kSw>(sk + (j % kStages) * C::kKVBytes); };
+    auto desc_v = [&](int j) {
+      return desc_mn_major<kSw>(sv + (j % kStages) * C::kKVBytes, C::kKVBox);
+    };
+    auto scores = [&](uint64_t dk) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int x = kk / kSteps, w = kk % kSteps;
+        Wgmma<BK>::template ss<0>(sc, dq + ((x * C::kQBox + w * 32) >> 4),
+                                  dk + ((x * C::kKVBox + w * 32) >> 4), kk > 0);
+      }
+      wgmma_commit();
+    };
+    auto product = [&](uint64_t dv, uint32_t(&p)[BK / 16][4]) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<HD>::template rs<1>(o, p[kk], dv + ((kk * 16 * kSw) >> 4), 1);
+      wgmma_commit();
+    };
+    // the online softmax of tile j's scores (in sc): mask (tiles that are
+    // not interior only), running max, P = exp2(S c - max c) in f32 back
+    // into sc and into the row sums, alpha for the accumulator
+    auto softmax = [&](int j) {
+      const int k0 = (lo + j) * BK;
+      const bool interior = k0 + BK <= a.s && (!a.causal || k0 + BK - 1 <= q_start) &&
+                            (a.window <= 0 || q_start + kBQ - 1 - k0 < a.window);
+      if (!interior) {
+#pragma unroll
+        for (int n8 = 0; n8 < BK / 8; ++n8) {
+          const int kp = k0 + 8 * n8 + col0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!keep(a.s, a.causal, a.window, row0 + (e & 2) * 4, kp + (e & 1)))
+              sc[4 * n8 + e] = -INFINITY;
+        }
+      }
+      // row maxima and sums in 4 independent chains each (a single chain
+      // of BK / 4 dependent operations would leave the warp waiting on
+      // latency)
+      float mp[2][4], ms[2], mx[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mp[0][i] = mp[1][i] = -INFINITY;
+#pragma unroll
+      for (int n8 = 0; n8 < BK / 8; ++n8) {
+        mp[0][n8 % 4] = fmaxf(mp[0][n8 % 4], fmaxf(sc[4 * n8], sc[4 * n8 + 1]));
+        mp[1][n8 % 4] = fmaxf(mp[1][n8 % 4], fmaxf(sc[4 * n8 + 2], sc[4 * n8 + 3]));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        mx[r] = fmaxf(fmaxf(fmaxf(mp[r][0], mp[r][1]), fmaxf(mp[r][2], mp[r][3])), m[r]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // the 4 threads of a row group hold the row between them
+        mx[r] = fmaxf(mx[r], shfl_xor(mx[r], 1));
+        mx[r] = fmaxf(mx[r], shfl_xor(mx[r], 2));
+        ms[r] = mx[r] == -INFINITY ? 0.f : mx[r] * c;
+        alpha[r] = ex2(fmaf(m[r], c, -ms[r]));  // 0 while m is -inf
+        m[r] = mx[r];
+      }
+      float rs[2][4] = {};
+#pragma unroll
+      for (int n8 = 0; n8 < BK / 8; ++n8) {
+        const float p0 = ex2(fmaf(sc[4 * n8], c, -ms[0]));
+        const float p1 = ex2(fmaf(sc[4 * n8 + 1], c, -ms[0]));
+        const float p2 = ex2(fmaf(sc[4 * n8 + 2], c, -ms[1]));
+        const float p3 = ex2(fmaf(sc[4 * n8 + 3], c, -ms[1]));
+        rs[0][n8 % 4] += p0 + p1;
+        rs[1][n8 % 4] += p2 + p3;
+        sc[4 * n8] = p0;
+        sc[4 * n8 + 1] = p1;
+        sc[4 * n8 + 2] = p2;
+        sc[4 * n8 + 3] = p3;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        l[r] = l[r] * alpha[r] + ((rs[r][0] + rs[r][1]) + (rs[r][2] + rs[r][3]));
+    };
+    // P in bf16 A fragments: rows row0 (registers 0, 2) and row0 + 8 (1, 3)
+    auto pack = [&]() {
+#pragma unroll
+      for (int n8 = 0; n8 < BK / 8; ++n8) {
+        pa[n8 / 2][(n8 % 2) * 2] = pack_bf16(sc[4 * n8], sc[4 * n8 + 1]);
+        pa[n8 / 2][(n8 % 2) * 2 + 1] = pack_bf16(sc[4 * n8 + 2], sc[4 * n8 + 3]);
+      }
+    };
+    // O *= alpha (no product in flight)
+    auto rescale = [&]() {
+#pragma unroll
+      for (int n8 = 0; n8 < HD / 8; ++n8) {
+        o[4 * n8] *= alpha[0];
+        o[4 * n8 + 1] *= alpha[0];
+        o[4 * n8 + 2] *= alpha[1];
+        o[4 * n8 + 3] *= alpha[1];
+      }
+    };
+
+    // Tile j's softmax runs while tile j - 1's P V is on the tensor cores:
+    // S_j and P_{j-1} V_{j-1} are issued together, S_j is waited for (wgmma
+    // groups complete in order), the softmax writes only sc, then P V is
+    // waited for and P_j packed into pa. Waits and descriptors come before
+    // each wgmma fence, and the registers a pending product reads are not
+    // written (a P packed while P V ran, or copied between two P buffers,
+    // made ptxas serialise every wgmma of the kernel: C7513). A stage's K
+    // is released once its S is done, its V once its P V is.
+    auto stage_in = [&]() {  // the rescale and P are done before the products
+      fence_acc(o);
+      fence_frag(pa);
+      wgmma_fence();
+    };
+    auto stage_out = [&]() {
+      wgmma_wait<0>();
+      fence_acc(o);
+      fence_frag(pa);
+    };
+    mbar_wait(q_full, 0);
+    wait_k(0);
+    const uint64_t dk0 = desc_k(0);
+    wgmma_fence();
+    scores(dk0);
+    wgmma_wait<0>();
+    fence_acc(sc);
+    mbar_arrive_if(&k_empty[0], lane == 0);
+    softmax(0);
+    pack();
+    for (int j = 1; j < nt; ++j) {
+      rescale();
+      wait_k(j);
+      wait_v(j - 1);
+      const uint64_t dk = desc_k(j), dv = desc_v(j - 1);
+      stage_in();
+      scores(dk);
+      product(dv, pa);
+      wgmma_wait<1>();
+      fence_acc(sc);
+      mbar_arrive_if(&k_empty[j % kStages], lane == 0);
+      softmax(j);
+      stage_out();
+      mbar_arrive_if(&v_empty[(j - 1) % kStages], lane == 0);
+      pack();
+    }
+    rescale();
+    wait_v(nt - 1);
+    const uint64_t dv = desc_v(nt - 1);
+    stage_in();
+    product(dv, pa);
+    stage_out();
+    mbar_arrive_if(&v_empty[(nt - 1) % kStages], lane == 0);
+
+    // ---- epilogue: O / max(l, 1e-30) in bf16 into this warpgroup's Q rows
+    // (its last S product is done), laid out as the o map's swizzled boxes,
+    // then TMA stores; the map drops rows past s and columns past hd ----
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += shfl_xor(l[r], 1);
+      l[r] += shfl_xor(l[r], 2);
+    }
+    const float d0 = 1.f / fmaxf(l[0], 1e-30f), d1 = 1.f / fmaxf(l[1], 1e-30f);
+    unsigned char* stage = sq + wg * 64 * kSw;  // box x at stage + x * kQBox
+    const int r0 = warp * 16 + lane / 4;        // the fragment rows in the box: r0, r0 + 8
+#pragma unroll
+    for (int n8 = 0; n8 < HD / 8; ++n8) {
+      const int col = 8 * n8 + col0, x = col / C::kBoxCols;
+      const int byte = (col % C::kBoxCols) * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        // the TMA swizzle: 16-byte chunk c of row r lies at c ^ (r % 8)
+        // (128-byte rows) or c ^ (r / 2 % 4) (64-byte rows)
+        const int swz = kSw == 128 ? (r & 7) : ((r >> 1) & 3);
+        *reinterpret_cast<uint32_t*>(stage + x * C::kQBox + r * kSw +
+                                     ((((byte >> 4) ^ swz)) << 4) + (byte & 15)) =
+            h ? pack_bf16(o[4 * n8 + 2] * d1, o[4 * n8 + 3] * d1)
+              : pack_bf16(o[4 * n8] * d0, o[4 * n8 + 1] * d0);
+      }
+    }
+    fence_proxy_async_shared();
+    named_sync(1 + wg, 128);  // the warpgroup's rows are written
+    if (t == 0) {
+      for (int x = 0; x < C::kBoxes; ++x)
+        tma_store(&a.o_map, stage + x * C::kQBox, x * C::kBoxCols, q_start + wg * 64, bh);
+      bulk_commit();
+      bulk_wait<0, true>();  // shared memory is read before the block exits
+    }
   }
 }
 
-template <typename K>
-cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, const Args& a,
+template <typename K, typename A>
+cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, const A& a,
                    cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
@@ -379,10 +595,24 @@ cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, const Args& a,
 }
 
 template <int HD>
-cudaError_t launch_hd(int dtype, dim3 grid, const Args& a, cudaStream_t stream) {
-  if (dtype == 0)
+cudaError_t launch_hd(int dtype, const Args& a, int bh, cudaStream_t stream) {
+  if (dtype == 0) {
+    const dim3 grid(bh, (a.s + kSimtBQ - 1) / kSimtBQ);
     return launch(fa_simt_kernel<HD>, grid, SimtCfg<HD>::kThreads, SimtCfg<HD>::kSmem, a, stream);
-  return launch(fa_mma_kernel<HD>, grid, MmaCfg<HD>::kThreads, MmaCfg<HD>::kSmem, a, stream);
+  }
+  using C = WgCfg<HD>;
+  TmaArgs t{};
+  const int bkv = bh / a.h * a.hkv;
+  const uint64_t s = a.s;
+  if (!make_map(&t.q_map, a.q, HD, s, bh, C::kBoxCols, kBQ, C::kSw) ||
+      !make_map(&t.k_map, a.k, HD, s, bkv, C::kBoxCols, C::kBK, C::kSw) ||
+      !make_map(&t.v_map, a.v, HD, s, bkv, C::kBoxCols, C::kBK, C::kSw) ||
+      !make_map(&t.o_map, a.o, HD, s, bh, C::kBoxCols, 64, C::kSw))
+    return cudaErrorInvalidValue;
+  t.h = a.h, t.hkv = a.hkv, t.s = a.s, t.causal = a.causal, t.window = a.window;
+  t.scale_log2 = static_cast<float>(a.scale * 1.4426950408889634);
+  const dim3 grid(bh, (a.s + kBQ - 1) / kBQ);
+  return launch(fa_wgmma_kernel<HD>, grid, kWgThreads, C::kSmem, t, stream);
 }
 
 }  // namespace fa
@@ -397,19 +627,18 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* ou
                            void* stream) {
   using namespace fa;
   if (b < 1 || h < 1 || hkv < 1 || h % hkv || s < 1 || window < 0 || (dtype != 0 && dtype != 1) ||
-      (s + kBQ - 1) / kBQ > 65535)
+      (s + kSimtBQ - 1) / kSimtBQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, out, h, hkv, s, causal, window,
                static_cast<float>(1.0 / sqrt(static_cast<double>(hd)))};
-  const dim3 grid(b * h, (s + kBQ - 1) / kBQ);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 32: return static_cast<int>(launch_hd<32>(dtype, grid, a, st));
-    case 64: return static_cast<int>(launch_hd<64>(dtype, grid, a, st));
-    case 80: return static_cast<int>(launch_hd<80>(dtype, grid, a, st));
-    case 96: return static_cast<int>(launch_hd<96>(dtype, grid, a, st));
-    case 128: return static_cast<int>(launch_hd<128>(dtype, grid, a, st));
-    case 256: return static_cast<int>(launch_hd<256>(dtype, grid, a, st));
+    case 32: return static_cast<int>(launch_hd<32>(dtype, a, b * h, st));
+    case 64: return static_cast<int>(launch_hd<64>(dtype, a, b * h, st));
+    case 80: return static_cast<int>(launch_hd<80>(dtype, a, b * h, st));
+    case 96: return static_cast<int>(launch_hd<96>(dtype, a, b * h, st));
+    case 128: return static_cast<int>(launch_hd<128>(dtype, a, b * h, st));
+    case 256: return static_cast<int>(launch_hd<256>(dtype, a, b * h, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -164,12 +164,12 @@ def allreduce_1pa_library() -> ctypes.CDLL:
 
 def allpairs_2pa_library() -> ctypes.CDLL:
     """``csrc/allpairs_2pa.cu``: ``reduce_scatter_2pa_launch(x, out,
-    scratch, flags, dtype, n, count, blocks, epoch, threads, stream)`` and
-    ``all_gather_2pa_launch(x, out, flags, dtype, n, count, blocks, epoch,
-    threads, stream)``."""
+    slots, flags, dtype, n, count, blocks, use_ll, epoch, threads,
+    stream)`` and ``all_gather_2pa_launch(x, out, flags, dtype, n, count,
+    blocks, epoch, threads, stream)``."""
     return _collective_library("allpairs_2pa", {
-        "reduce_scatter_2pa_launch": [_P, _P, _P, _P, _I, _I, _LL, _I, _U,
-                                      _I, _P],
+        "reduce_scatter_2pa_launch": [_P, _P, _P, _P, _I, _I, _LL, _I, _I,
+                                      _U, _I, _P],
         "all_gather_2pa_launch": [_P, _P, _P, _I, _I, _LL, _I, _U, _I, _P]})
 
 

@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import comm_utils
 
 __all__ = ["flash_attention", "flash_attention_plain", "block_range",
-           "KERNEL", "HEAD_DIMS"]
+           "tile_class", "kv_tile", "KERNEL", "HEAD_DIMS", "KERNEL_BLOCK_Q"]
 
 KERNEL = "flash_attention"
 NEG = -1e30              # masked logit, as the reference's _NEG
@@ -33,6 +33,15 @@ BLOCK = 128              # the plain version's q/kv block (the reference's)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the CUDA kernel is instantiated for
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+#: query rows a block of the bf16 CUDA kernel (two warpgroups of 64)
+KERNEL_BLOCK_Q = 128
+
+
+def kv_tile(hd: int) -> int:
+    """Keys a KV tile of the bf16 CUDA kernel at head dim ``hd``
+    (``csrc/flash_attention.cu: WgCfg::kBK``): 64 at hd 256, whose O
+    accumulator takes 128 registers a thread, else 128."""
+    return 64 if hd > 128 else 128
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,6 +75,26 @@ def block_range(q_start: int, block_q: int, block_kv: int, s: int, *,
     hi = (min(q_start + block_q - 1, s - 1) // block_kv + 1 if causal
           else -(-s // block_kv))
     return lo, hi
+
+
+def tile_class(q_start: int, k_start: int, s: int, *, block_q: int,
+               block_kv: int, causal: bool, window: Optional[int]) -> str:
+    """How the bf16 CUDA kernel treats the KV tile at ``k_start`` for the
+    query block at ``q_start`` (``csrc/flash_attention.cu``, mirrored
+    here): ``"skipped"`` outside :func:`block_range` (never loaded);
+    ``"interior"`` when every pair of the tile is kept for every row of
+    the block (every key < s, all keys at or before the block's first row
+    when causal, inside the window of its last row), so the kernel runs
+    no mask there; else ``"masked"``, masked element by element."""
+    lo, hi = block_range(q_start, block_q, block_kv, s, causal=causal,
+                         window=window)
+    if not lo <= k_start // block_kv < hi:
+        return "skipped"
+    k_last = k_start + block_kv - 1
+    if (k_last < s and (not causal or k_last <= q_start)
+            and (window is None or q_start + block_q - 1 - k_start < window)):
+        return "interior"
+    return "masked"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

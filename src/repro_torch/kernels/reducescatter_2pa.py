@@ -9,6 +9,14 @@ launches, as the reference makes two ``pallas_call``s.
 Rank ``c`` folds chunk ``c`` rotated from itself, ``x[c][c] + x[c+1][c]
 + ... + x[c-1][c]``, rounding after each add like the reference; the
 kernel and :func:`reduce_scatter_2pa_plain` keep that order.
+
+The ReduceScatter kernel has two protocols with that one fold, so both
+are bit-equal to the plain version: LL packets (paper §4.2.2; 4 data
+bytes and the launch's epoch in one 8-byte store, the receiver spinning
+on each packet) for a rank's input of at most :data:`LL_MAX_BYTES`, and
+HB (vector puts, then one flag round trip) above it. The reference has
+no protocol argument, so neither does :func:`reduce_scatter_2pa`: the
+bytes decide (:func:`rs_protocol`).
 """
 from __future__ import annotations
 
@@ -20,10 +28,30 @@ from repro_torch.core.channels import MemoryChannel
 from repro_torch.kernels import comm_utils
 
 __all__ = ["reduce_scatter_2pa", "all_gather_2pa", "all_reduce_2pa",
-           "reduce_scatter_2pa_plain", "all_gather_2pa_plain"]
+           "reduce_scatter_2pa_plain", "all_gather_2pa_plain",
+           "rs_protocol", "ll_words", "LL_MAX_BYTES"]
 
 RS_KERNEL = "reduce_scatter_2pa"
 AG_KERNEL = "all_gather_2pa"
+#: the largest input a rank (its n chunks, in bytes) whose ReduceScatter
+#: goes by LL packets; HB above. Where the two protocols' times cross in
+#: chip_smoke.py phase 8's sweep (n = 4, bf16, NVIDIA H100 80GB HBM3 at
+#: 700 W): LL is faster up to 512 KiB a rank, HB from 1 MiB (see
+#: PERF.md §6, row 3, for the times).
+LL_MAX_BYTES = 512 << 10
+
+
+def rs_protocol(nbytes: int) -> str:
+    """The ReduceScatter kernel's protocol for a rank input of ``nbytes``:
+    ``"ll"`` up to :data:`LL_MAX_BYTES`, else ``"hb"``."""
+    return "ll" if nbytes <= LL_MAX_BYTES else "hb"
+
+
+def ll_words(count: int, element_size: int) -> int:
+    """LL packet words of a chunk of ``count`` elements: 4 data bytes a
+    packet, so an odd count of 2-byte elements ends in a word whose top
+    half is zero."""
+    return -(-count * element_size // 4)
 
 
 def _chunk_rows(x: torch.Tensor) -> int:
@@ -92,28 +120,41 @@ def all_gather_2pa_plain(x: torch.Tensor) -> torch.Tensor:
     return out.reshape(n, n * rows, cols)
 
 
-def _launch_rs(x: torch.Tensor) -> torch.Tensor:
+def _launch_rs(x: torch.Tensor,
+               protocol: Optional[str] = None) -> torch.Tensor:
+    """One launch of the ReduceScatter kernel; ``protocol`` (``"ll"`` or
+    ``"hb"``) overrides :func:`rs_protocol` for measuring the two side by
+    side."""
     from repro_torch.kernels import build
     code = comm_utils.check_kernel_input(x)
     n, cols = x.shape[0], x.shape[2]
     rows = _chunk_rows(x)
     count = rows * cols
+    protocol = protocol or rs_protocol(x[0].numel() * x.element_size())
+    use_ll = protocol == "ll"
 
     def make():
-        blocks = comm_utils.blocks_per_rank(n * count * x.element_size(), n)
-        scratch = torch.empty((n, n, count), dtype=x.dtype, device=x.device)
+        if use_ll:      # one packet word per thread: the folds overlap
+            words = ll_words(count, x.element_size())
+            blocks = comm_utils.blocks_per_rank(words, n, comm_utils.THREADS)
+            slots = torch.zeros((n, n, words, 2), dtype=torch.int32,
+                                device=x.device)
+        else:
+            blocks = comm_utils.blocks_per_rank(n * count * x.element_size(),
+                                                n)
+            slots = torch.empty((n, n, count), dtype=x.dtype, device=x.device)
         flags = torch.zeros(n * n * blocks, dtype=torch.int32,
                             device=x.device)
-        return comm_utils.Workspace(blocks, (scratch, flags))
+        return comm_utils.Workspace(blocks, (slots, flags))
 
-    ws = comm_utils.workspace(RS_KERNEL, x, make)
-    scratch, flags = ws.tensors
+    ws = comm_utils.workspace(f"{RS_KERNEL}/{protocol}", x, make)
+    slots, flags = ws.tensors
     out = torch.empty((n, rows, cols), dtype=x.dtype, device=x.device)
     lib = build.allpairs_2pa_library()
     rc = lib.reduce_scatter_2pa_launch(
-        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), flags.data_ptr(),
-        code, n, count, ws.blocks, ws.next_epoch(), comm_utils.THREADS,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), out.data_ptr(), slots.data_ptr(), flags.data_ptr(),
+        code, n, count, ws.blocks, int(use_ll), ws.next_epoch(),
+        comm_utils.THREADS, torch.cuda.current_stream(x.device).cuda_stream)
     comm_utils.check_launch(rc, lib.allpairs_2pa_error_string, RS_KERNEL, x)
     return out
 

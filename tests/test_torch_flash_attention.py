@@ -149,6 +149,60 @@ def test_block_range_skips_only_fully_masked_blocks(s, block_q, block_kv,
                     lo * block_kv:(lo + 1) * block_kv].any()
 
 
+@pytest.mark.parametrize("causal,window", [
+    (True, None), (False, None), (True, 1), (True, 64), (True, 300),
+    (False, 5), (False, 64)])
+@pytest.mark.parametrize("block_kv", sorted({fa.kv_tile(hd)
+                                             for hd in fa.HEAD_DIMS}))
+@pytest.mark.parametrize("s", [12, 128, 200, 333, 1024])
+def test_tile_classes_match_the_dense_mask(s, block_kv, causal, window):
+    """The bf16 kernel's tile classes (``tile_class``, mirrored from
+    ``csrc/flash_attention.cu``) over its 128-row query blocks and each
+    head dim's KV tile, against the dense mask: an interior tile is wholly
+    kept (no key past s), a skipped tile wholly masked, and no visited
+    tile wholly masked; causal without a window masks only the diagonal
+    tiles of a full query block."""
+    bq = fa.KERNEL_BLOCK_Q
+    pos = torch.arange(s)
+    rel = pos[:, None] - pos[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        mask &= rel >= 0
+    if window is not None:
+        mask &= rel < window
+    for q_start in range(0, s, bq):
+        masked = 0
+        for kb in range(-(-s // block_kv)):
+            k0 = kb * block_kv
+            tile = mask[q_start:q_start + bq, k0:k0 + block_kv]
+            cls = fa.tile_class(q_start, k0, s, block_q=bq,
+                                block_kv=block_kv, causal=causal,
+                                window=window)
+            where = (q_start, k0, cls)
+            if cls == "interior":
+                assert tile.shape[1] == block_kv and bool(tile.all()), where
+            elif cls == "skipped":
+                assert not tile.any(), where
+            else:
+                assert cls == "masked" and tile.any(), where
+                masked += 1
+        if causal and window is None and q_start + bq <= s:
+            assert masked == bq // block_kv, (q_start, masked)
+
+
+def test_tile_geometry_mirrors_the_kernel():
+    """The query block and the KV tiles that ``tile_class`` mirrors are
+    the kernel's own (``WgCfg``)."""
+    import re
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    assert int(re.search(r"constexpr int kBQ = (\d+);", src)[1]) \
+        == fa.KERNEL_BLOCK_Q
+    cut, wide, narrow = map(int, re.search(
+        r"kBK = HD > (\d+) \? (\d+) : (\d+);", src).groups())
+    for hd in fa.HEAD_DIMS:
+        assert fa.kv_tile(hd) == (wide if hd > cut else narrow), hd
+
+
 def test_cpu_tensor_never_reaches_the_kernel(monkeypatch):
     """A CPU tensor runs the plain version without building or loading
     the kernel, and asking a CPU tensor for the kernel raises."""

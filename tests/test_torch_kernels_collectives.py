@@ -26,6 +26,7 @@ from repro.kernels.reducescatter_2pa import \
 from repro_torch.core.channels import (MemoryChannel, Protocol, pack_ll,
                                        unpack_ll)
 from repro_torch.kernels import build, comm_utils, ops, ref
+from repro_torch.kernels import reducescatter_2pa as rs
 
 # the suite runs in parallel worker processes: one intra-op thread each
 # keeps these tests from crowding the other workers' cores
@@ -334,3 +335,58 @@ def test_kernel_input_checks():
                                                   dtype=torch.float64))
     with pytest.raises(ValueError, match="1 to 8 ranks"):
         comm_utils.check_kernel_input(torch.zeros(9, 1, 1))
+
+
+# ---------------------------------------------------------------------------
+# the ReduceScatter's protocols (LL packets at small sizes, HB above)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("nbytes,want", [
+    (1024, "ll"), (32 << 10, "ll"), (rs.LL_MAX_BYTES - 1, "ll"),
+    (rs.LL_MAX_BYTES, "ll"), (rs.LL_MAX_BYTES + 1, "hb"), (16 << 20, "hb")],
+    ids=["1KiB", "decode", "under", "at", "over", "16MiB"])
+def test_reduce_scatter_protocol_by_bytes(nbytes, want):
+    """A rank's input bytes pick the protocol: LL up to LL_MAX_BYTES
+    (qwen3-1.7b's TP=4 decode AllReduce, 32 KiB a rank, among them), HB
+    above."""
+    assert rs.rs_protocol(nbytes) == want
+
+
+@pytest.mark.parametrize("dtype,count", [
+    (torch.bfloat16, 1), (torch.bfloat16, 387), (torch.bfloat16, 4095),
+    (torch.bfloat16, 4096), (torch.float32, 387), (torch.int32, 1)])
+def test_reduce_scatter_ll_words_match_the_packets(dtype, count):
+    """The LL workspace's packet words a chunk equal what ``pack_ll`` makes
+    of the chunk: two 2-byte elements a word, an odd count ending in a word
+    whose top half is zero."""
+    chunk = torch.arange(1, count + 1).to(dtype)
+    packets = pack_ll(chunk, 7)
+    words = rs.ll_words(count, chunk.element_size())
+    assert packets.shape == (words, 2)
+    assert bool((packets[:, 1] == 7).all())
+    if chunk.element_size() == 2 and count % 2:
+        last = int(chunk[-1:].view(torch.int16)) & 0xFFFF
+        assert int(packets[-1, 0]) & 0xFFFFFFFF == last   # top half zero
+
+
+@pytest.mark.parametrize("side", ["ll", "hb"])
+def test_reduce_scatter_cpu_tensor_never_reaches_the_library(monkeypatch,
+                                                             side):
+    """On either side of the threshold a CPU tensor runs the plain version
+    without building or loading the kernel, and asking it for the kernel
+    raises."""
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA library was built or loaded")
+
+    monkeypatch.setattr(build, "_load", refuse)
+    monkeypatch.setattr(build, "nvcc", refuse)
+    monkeypatch.setattr(comm_utils, "LAUNCHES", comm_utils.LAUNCHES.copy())
+    comm_utils.LAUNCHES.clear()
+    n, cols = 4, 512
+    rows = rs.LL_MAX_BYTES // (n * cols * 4) + (side == "hb")
+    x = torch.randn(n, n * rows, cols)
+    assert rs.rs_protocol(x[0].numel() * x.element_size()) == side
+    got = ops.reduce_scatter(x)
+    assert torch.equal(got, rs.reduce_scatter_2pa_plain(x))
+    assert not comm_utils.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        ops.reduce_scatter(x, backend="cuda")
