@@ -50,8 +50,12 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    with every kernel's launches counted; and each kernel's device time
    at the serving sizes and over a per-rank size sweep at n=4, beside
    its HBM bound, its plain version and a one-call PyTorch yardstick
-   (the ReduceScatter with both protocols forced, over a sweep that adds
-   64-512 KiB);
+   (the ReduceScatter and the all-pairs AllGather each with both
+   protocols forced, over a sweep that adds 64-512 KiB); the AllGather's
+   LL and HB protocols each forced, and the op, bit-equal to the plain
+   version on both sides of its threshold at odd counts, n in {2, 4, 8} x
+   f32/bf16/f16/int32, and over back-to-back launches that alternate the
+   protocols;
 9. expert-parallel MoE — the all_to_all kernel (``csrc/alltoall.cu``)
    bit-equal to its plain version over n in {2, 4, 8} ×
    f32/bf16/int32 × the reference test's shapes, an odd count, the MoE
@@ -93,7 +97,8 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
 11. hierarchical 2PH and AllGather-matmul — the 2PH AllReduce kernel
    (``csrc/allreduce_2ph.cu``) bit-equal to its plain version over
    (nodes, local) in {(2, 2), (2, 4), (4, 4)} x rows a chunk in {1, 8,
-   37} x cols in {1, 128, 2048} x f32/bf16, and two calls back to back;
+   37} x cols in {1, 128, 2048} x f32/bf16, and at 1031 x 2048 a chunk
+   (several sub-tiles a block), each case two calls back to back;
    the AllGather-matmul kernel (``csrc/collective_matmul.cu``) within a
    relative L2 error of 1e-5 (f32 out) or 1e-2 (bf16 out) of its plain
    version over n in {2, 4, 8} x rows in {2, 64, 4096} x K in {128, 2048}
@@ -118,8 +123,10 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    w_gate and wq column shards, bf16 in, bf16 and f32 out, the bf16 out
    bit-equal to the f32 out rounded); and each
    kernel's device time per leaf or shape beside its bound, its plain
-   version and a one-call PyTorch yardstick, the plan replay's time and
-   the peak device memory.
+   version and a one-call PyTorch yardstick, the plan replay's time, the
+   bytes the 2PH kernel moves by its own count and the rate they imply,
+   the device memory one 2PH call allocates, and the main path's peak
+   device memory.
 
 The last lines are the card's nvidia-smi line, one ``{"kernels": [...]}``
 JSON object, and ``{"ok": true, "device": {...}}``. The whole record,
@@ -197,8 +204,9 @@ MAIN_DECODE_STEPS = 4
 # stops at 1 MiB, only the AllGathers go to 64 MiB
 SWEEP = {"1KiB": (4, 128), "32KiB": (8, 2048), "1MiB": (256, 2048),
          "16MiB": (4096, 2048), "64MiB": (16384, 2048)}
-# the ReduceScatter's sweep adds sizes around where its two protocols
-# (kernels/reducescatter_2pa.py:rs_protocol) cross, and times each forced
+# the ReduceScatter's and the all-pairs AllGather's sweeps add sizes around
+# where their two protocols (kernels/reducescatter_2pa.py:rs_protocol,
+# ag_protocol) cross, and time each forced
 RS_SWEEP = {"64KiB": (16, 2048), "128KiB": (32, 2048),
             "256KiB": (64, 2048), "512KiB": (128, 2048)}
 # phase 9: expert-parallel MoE decode. Full width; the depth is cut to
@@ -245,6 +253,10 @@ AGMM_REPLACES = "src/repro/kernels/collective_matmul.py:41"
 # AllGather-matmul's n, rows a rank, K, F
 HIER_GRIDS = ((2, 2), (2, 4), (4, 4))
 HIER_ROWS, HIER_COLS = (1, 8, 37), (1, 128, 2048)
+# and at each grid, 2PH chunks of this many rows of 2048 (odd) whose tile a
+# block splits into several sub-tiles (phase 2 of one behind phase 1 of the
+# next): the grid's chunks give each block one
+HIER_SUBTILED_ROWS = 1031
 AGMM_GRID = dict(n=(2, 4, 8), rows=(2, 64, 4096), k=(128, 2048),
                  f=(128, 512, 1536))
 # the bf16 kernel's two regimes (kernels/collective_matmul.py:regime) on
@@ -818,11 +830,12 @@ def _collectives_vs_plain(device, gen):
     return cases, errs
 
 
-def _rs_shapes(n, esz, limit):
-    """(rows a chunk, cols) of ReduceScatter inputs around ``limit`` bytes
-    a rank (n chunks): a tiny odd count, the largest at or under the limit
-    and the next over it with 512 columns, and the same with 511 columns
-    and an odd row count (an odd element count a chunk)."""
+def _threshold_shapes(n, esz, limit):
+    """(rows a chunk, cols) of inputs around ``limit`` bytes a rank (n
+    chunks of ``esz``-byte elements): a tiny odd count, the largest at or
+    under the limit and the next over it with 512 columns, and the same
+    with 511 columns and an odd row count (an odd element count a
+    chunk)."""
     out = [(3, 129)]
     for cols, step in ((512, 1), (511, 2)):
         rows = limit // (n * cols * esz)
@@ -844,7 +857,7 @@ def _rs_protocols_vs_plain(device, gen):
     for n in (2, 4, 8):
         for dtype in (torch.float32, torch.bfloat16, torch.int32):
             esz = torch.empty((), dtype=dtype).element_size()
-            for rows, cols in _rs_shapes(n, esz, rs.LL_MAX_BYTES):
+            for rows, cols in _threshold_shapes(n, esz, rs.LL_MAX_BYTES):
                 x = _rand((n, n * rows, cols), dtype, gen, device)
                 want = rs.reduce_scatter_2pa_plain(x)
                 proto = rs.rs_protocol(x[0].numel() * esz)
@@ -863,6 +876,54 @@ def _rs_protocols_vs_plain(device, gen):
           f"the protocol sweep missed a side of the threshold: {chosen}")
     return dict(cases=cases, max_abs_err=err, chosen=chosen,
                 ll_max_bytes=rs.LL_MAX_BYTES)
+
+
+def _ag_protocols_vs_plain(device, gen):
+    """The all-pairs AllGather kernel with each protocol forced, and the
+    public op (which picks by bytes), bit-equal to the plain version at n
+    in {2, 4, 8}, f32/bf16/f16/int32, on both sides of AG_LL_MAX_BYTES a
+    rank and at odd element counts; then, per n and type, six launches
+    back to back on two inputs (an odd count) that alternate the
+    protocols, each output held after one synchronisation."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import reducescatter_2pa as rs
+    cases, err = 0, 0.0
+    chosen = {"ll": 0, "hb": 0}
+
+    def held(got, x, what):
+        nonlocal cases, err
+        want = rs.all_gather_2pa_plain(x)
+        err = max(err, (got.double() - want.double()).abs().max().item())
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"all_gather allpairs {what} != plain: {x.dtype} "
+              f"{tuple(x.shape)}")
+        cases += 1
+
+    for n in (2, 4, 8):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16,
+                      torch.int32):
+            esz = torch.empty((), dtype=dtype).element_size()
+            for rows, cols in _threshold_shapes(1, esz, rs.AG_LL_MAX_BYTES):
+                x = _rand((n, rows, cols), dtype, gen, device)
+                proto = rs.ag_protocol(x[0].numel() * esz)
+                chosen[proto] += 1
+                for name, got in (("ll", rs._launch_ag(x, "ll")),
+                                  ("hb", rs._launch_ag(x, "hb")),
+                                  (f"op ({proto})",
+                                   ops.all_gather(x, algo="allpairs"))):
+                    torch.cuda.synchronize()
+                    held(got, x, f"{name} n={n}")
+            xs = [_rand((n, 3, 2047), dtype, gen, device) for _ in range(2)]
+            chain = [(xs[i], rs._launch_ag(xs[i], p)) for i, p in (
+                (0, "ll"), (1, "hb"), (1, "ll"), (0, "hb"), (0, "ll"),
+                (1, "ll"))]
+            torch.cuda.synchronize()
+            for i, (x, got) in enumerate(chain):
+                held(got, x, f"alternating launch {i} n={n}")
+    check(chosen["ll"] > 0 and chosen["hb"] > 0,
+          f"the protocol sweep missed a side of the threshold: {chosen}")
+    return dict(cases=cases, max_abs_err=err, chosen=chosen,
+                ag_ll_max_bytes=rs.AG_LL_MAX_BYTES)
 
 
 def _collectives_main_path(device, gen):
@@ -948,7 +1009,9 @@ def _collectives_time(device, gen):
              [("decode_2pa_half", (BATCH // n, d), torch.bfloat16),
               ("prefill_2pa_half", (BATCH * PROMPT // n, d), torch.bfloat16),
               ("logits",) + sizes["logits"]]
-             + [(k, v, torch.bfloat16) for k, v in SWEEP.items()])],
+             + [(k, v, torch.bfloat16)
+                for k, v in sorted({**SWEEP, **RS_SWEEP}.items(),
+                                   key=lambda kv: kv[1][0] * kv[1][1])])],
         "all_gather_ring": [
             ("all_gather", dict(algo="ring"),
              [("logits",) + sizes["logits"]]
@@ -991,14 +1054,17 @@ def _collectives_time(device, gen):
                 extra = {}
                 if kernel == "all_reduce_1pa":
                     ws_name += f"/{'ll' if kw.get('use_ll', True) else 'hb'}"
-                elif kernel == "reduce_scatter_2pa":
+                elif kernel in ("reduce_scatter_2pa", "all_gather_2pa"):
                     # both protocols forced, beside the one the op picks
-                    extra["protocol"] = rs.rs_protocol(rank_bytes)
+                    pick, launch = ((rs.rs_protocol, rs._launch_rs)
+                                    if kernel == "reduce_scatter_2pa" else
+                                    (rs.ag_protocol, rs._launch_ag))
+                    extra["protocol"] = pick(rank_bytes)
                     ws_name += f"/{extra['protocol']}"
                     for proto in ("ll", "hb"):
                         extra[f"{proto}_ms"] = device_ms(
-                            lambda x=x, proto=proto: rs._launch_rs(x, proto),
-                            iters)[0]
+                            lambda x=x, proto=proto, launch=launch:
+                            launch(x, proto), iters)[0]
                 rows_out[kernel].append(dict(
                     op=op, **kw, size=label, n=n, rows=rows, cols=cols,
                     dtype=str(dtype).replace("torch.", ""),
@@ -1019,10 +1085,14 @@ def phase_collectives(device, gen):
     protocols = _rs_protocols_vs_plain(device, gen)
     errs["reduce_scatter_2pa"] = max(errs["reduce_scatter_2pa"],
                                      protocols["max_abs_err"])
+    ag_protocols = _ag_protocols_vs_plain(device, gen)
+    errs["all_gather_2pa"] = max(errs["all_gather_2pa"],
+                                 ag_protocols["max_abs_err"])
     main = _collectives_main_path(device, gen)
     timing = _collectives_time(device, gen)
     emit("collectives", cases=cases, max_abs_err=errs,
-         rs_protocols=protocols, main_path=main, shapes=timing,
+         rs_protocols=protocols, ag_protocols=ag_protocols, main_path=main,
+         shapes=timing,
          seconds=round(time.perf_counter() - t, 3))
     return errs, main["launches"], timing
 
@@ -1859,33 +1929,54 @@ def _agmm_fault(x, w, out_dtype):
 
 def _2ph_vs_plain(gen, device):
     """The 2PH kernel against its plain version, bit-equal, over the grid
-    (and two calls back to back against the plain version twice), and
-    the fault control's reading on one case."""
-    from repro_torch.kernels import ops
-    cases, err = 0, 0.0
+    and at chunks a block takes in several sub-tiles (each case two calls
+    back to back against the plain version twice), and the fault
+    control's reading on one case. Returns the grid's cases, the
+    sub-tiled cases with their sub-tiles a block, the largest error and
+    the fault's."""
+    from repro_torch.kernels import comm_utils, ops
+    from repro_torch.kernels.allreduce_2ph import scratch_geometry
+    cases, err, subtiled = 0, 0.0, []
+
+    def held(x, nn, what):
+        nonlocal err
+        y = ops.all_reduce(x, algo="2ph", node_size=nn)
+        y2 = ops.all_reduce(y, algo="2ph", node_size=nn)
+        p = ops.all_reduce(x, algo="2ph", node_size=nn, backend="torch")
+        p2 = ops.all_reduce(p, algo="2ph", node_size=nn, backend="torch")
+        torch.cuda.synchronize()
+        e = (y.double() - p.double()).abs().max().item()
+        err = max(err, e)
+        check(torch.equal(y, p) and torch.equal(y2, p2),
+              f"2PH kernel != plain: {what} {x.dtype} (max |err| {e})")
+
     for nn, ln in HIER_GRIDS:
         for rows in HIER_ROWS:
             for cols in HIER_COLS:
                 for dtype in (torch.float32, torch.bfloat16):
                     x = _rand((nn * ln, ln * rows, cols), dtype, gen, device)
-                    y = ops.all_reduce(x, algo="2ph", node_size=nn)
-                    y2 = ops.all_reduce(y, algo="2ph", node_size=nn)
-                    p = ops.all_reduce(x, algo="2ph", node_size=nn,
-                                       backend="torch")
-                    p2 = ops.all_reduce(p, algo="2ph", node_size=nn,
-                                        backend="torch")
-                    torch.cuda.synchronize()
-                    e = (y.double() - p.double()).abs().max().item()
-                    err = max(err, e)
-                    check(torch.equal(y, p) and torch.equal(y2, p2),
-                          f"2PH kernel != plain: {nn}x{ln} rows={rows} "
-                          f"cols={cols} {dtype} (max |err| {e})")
+                    held(x, nn, f"{nn}x{ln} rows={rows} cols={cols}")
                     cases += 2
+        for dtype in (torch.float32, torch.bfloat16):
+            x = _rand((nn * ln, ln * HIER_SUBTILED_ROWS, 2048), dtype, gen,
+                      device)
+            held(x, nn, f"{nn}x{ln} rows={HIER_SUBTILED_ROWS} cols=2048")
+            blocks = comm_utils.workspace(f"all_reduce_2ph/nodes{nn}",
+                                          x).blocks
+            geo = scratch_geometry(nn, ln, HIER_SUBTILED_ROWS * 2048,
+                                   x.element_size(), blocks * nn * ln)
+            subtiled.append(dict(grid=f"{nn}x{ln}", dtype=str(dtype)[6:],
+                                 blocks_per_rank=blocks,
+                                 subtiles=geo.subtiles, calls=2))
+            check(geo.subtiles > 1, f"2PH sub-tiled case {subtiled[-1]} "
+                  f"has one sub-tile a block")
+            del x
+        torch.cuda.empty_cache()
     x = _rand((8, 4 * 8, 128), torch.float32, gen, device)
     fault = (_2ph_fault(x, 2).double() - ops.all_reduce(
         x, algo="2ph", node_size=2).double()).abs().max().item()
     check(fault > 0, "2PH fault control reads bit-equal")
-    return cases, err, fault
+    return cases, subtiled, err, fault
 
 
 def _agmm_vs_plain(gen, device):
@@ -2168,19 +2259,34 @@ def _hier_time(device, tmp):
     plan replay's (three executor launches) and the same plan's on the
     plain executor, the plain 2PH version's and the yardstick's (x.sum(0)
     expanded, which the port never calls), beside the bound: every
-    rank's input read once and output written once over HBM."""
+    rank's input read once and output written once over HBM. Beside it,
+    the bytes the kernel moves by its own count
+    (kernels/allreduce_2ph.py:traffic_bytes, over all ranks) and the rate
+    they imply, and the device memory one kernel call allocates beyond
+    its input (its output, the partials and, at the first call, the
+    flags)."""
     from repro_torch.core.comm import load_plan_set
     from repro_torch.core.executor import THREADS
     from repro_torch.kernels import comm_utils, ops
+    from repro_torch.kernels.allreduce_2ph import traffic_bytes
     rows_out = []
     for name, shape in _grad_leaves().items():
         x = _leaf(name, shape, device)
         plan = load_plan_set(tmp / "grad_plans" / name, device=device)[name]
         nbytes = 2 * x.numel() * x.element_size()
+        rank_bytes = x[0].numel() * x.element_size()
+        moved = x.shape[0] * sum(traffic_bytes(HIER_NN, HIER_L, rank_bytes))
         iters = max(2, min(50, int(2e9 // nbytes)))
 
         def kern(x=x):
             return ops.all_reduce(x, algo="2ph", node_size=HIER_NN)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        before = torch.cuda.memory_allocated(device)
+        kern()
+        torch.cuda.synchronize()
+        call_gb = (torch.cuda.max_memory_allocated(device) - before) / 1e9
 
         def plain(x=x):
             return ops.all_reduce(x, algo="2ph", node_size=HIER_NN,
@@ -2208,13 +2314,15 @@ def _hier_time(device, tmp):
         l_ms, l_cov = device_ms(lib, iters)
         rows_out.append(dict(
             leaf=name, rows=shape[0], cols=shape[1], ranks=x.shape[0],
-            rank_bytes=x[0].numel() * x.element_size(),
+            rank_bytes=rank_bytes,
             blocks_per_rank=comm_utils.workspace(
                 f"all_reduce_2ph/nodes{HIER_NN}", x).blocks,
             ms=k_ms, ms_wall=k_wall, plan_ms=r_ms, plan_plain_ms=rp_ms,
             plan_blocks_per_rank=plan_blocks, plan_threads=plan_threads,
             plain_ms=p_ms, library_ms=l_ms,
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes,
+            moved_bytes=moved, moved_per_bound=moved / nbytes,
+            moved_tb_per_s=moved / k_ms / 1e9, call_alloc_gb=call_gb,
             sleep_covered=dict(kernel=k_cov, plan=r_cov, plan_plain=rp_cov,
                                plain=p_cov, library=l_cov)))
         del x
@@ -2280,20 +2388,26 @@ def phase_hierarchical(device, gen):
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
         tmp = pathlib.Path(d)
-        cases_2ph, err_2ph, fault_2ph_grid = _2ph_vs_plain(gen, device)
+        cases_2ph, subtiled_2ph, err_2ph, fault_2ph_grid = _2ph_vs_plain(
+            gen, device)
         cases_mm, errs_mm, rels_mm, fault_mm, edges_mm = _agmm_vs_plain(
             gen, device)
         exact = _hier_exact(device, tmp)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
+        # what earlier phases still hold (the kernels' cached workspaces)
+        # is in the peak; the main path's own share is the difference
+        held_gb = torch.cuda.memory_allocated(device) / 1e9
         leaves, mm_main, launches = _hier_main_path(device, tmp)
         peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
         hier_timing = _hier_time(device, tmp)
         mm_timing = _agmm_time(device, gen)
     total = {k: sum(r[k] for r in hier_timing)
              for k in ("ms", "ms_wall", "plan_ms", "plan_plain_ms",
-                       "plain_ms", "library_ms", "bound_ms")}
+                       "plain_ms", "library_ms", "bound_ms", "bytes",
+                       "moved_bytes")}
     emit("hierarchical", grid=f"{HIER_NN}x{HIER_L}", cases_2ph=cases_2ph,
+         subtiled_2ph=subtiled_2ph,
          max_abs_err_2ph=err_2ph, fault_2ph_grid_max_abs_err=fault_2ph_grid,
          cases_agmm=cases_mm, max_abs_err_agmm=errs_mm,
          max_rel_l2_agmm=rels_mm, fault_agmm_rel_l2=fault_mm,
@@ -2301,6 +2415,7 @@ def phase_hierarchical(device, gen):
          agmm_rel_tol={str(k)[6:]: v for k, v in AGMM_REL_TOL.items()},
          leaf_rel_tol=LEAF_REL_TOL, exact=exact, leaves=leaves,
          agmm_main=mm_main, launches=launches, peak_gb_main_path=peak_gb,
+         held_gb_before_main_path=held_gb,
          gradient_total=total, leaf_shapes=hier_timing,
          agmm_shapes=mm_timing, seconds=round(time.perf_counter() - t, 3))
     return dict(err_2ph=err_2ph, errs_mm=errs_mm, mm_main=mm_main,
@@ -2426,23 +2541,34 @@ def main(argv=None) -> int:
                             threads=r["plan_threads"]) for r in ht]))
     if coll is not None:
         # the decode-size row of each kernel: the 1PA LL decode AllReduce,
-        # the two halves of the decode AllReduce through 2PA, and the
-        # logits gather through the ring
+        # the ReduceScatter half of the decode AllReduce through 2PA, and
+        # the logits gather through the ring; the all-pairs AllGather at
+        # its main-path size (the AllGather half of the prefill AllReduce
+        # through 2PA), the decode half beside it
         errs, coll_launches, coll_timing = coll
         at = {"all_reduce_1pa": ("decode", True),
               "reduce_scatter_2pa": ("decode", None),
-              "all_gather_2pa": ("decode_2pa_half", None),
+              "all_gather_2pa": ("prefill_2pa_half", None),
               "all_gather_ring": ("logits", None)}
+        keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+
+        def size_row(name, label, ll=None):
+            return next(r for r in coll_timing[name]
+                        if r["size"] == label and r.get("use_ll") == ll)
+
         for name, (source, replaces) in COLLECTIVES.items():
             label, ll = at[name]
-            row = next(r for r in coll_timing[name]
-                       if r["size"] == label and r.get("use_ll") == ll)
+            row = size_row(name, label, ll)
+            extra = {}
+            if name == "all_gather_2pa":
+                extra["size"] = label
+                extra["decode_half"] = {
+                    k: size_row(name, "decode_2pa_half")[k]
+                    for k in keys + ("protocol",)}
             kernels.append(dict(
                 name=name, route="cuda", source=source, replaces=replaces,
                 launches=coll_launches.get(name, 0), max_abs_err=errs[name],
-                ms=row["ms"], plain_ms=row["plain_ms"],
-                bound_ms=row["bound_ms"], bound_by="bytes",
-                library_ms=row["library_ms"]))
+                **{k: row[k] for k in keys}, bound_by="bytes", **extra))
     if moe is not None:
         # the decode top bucket: 64 rows per block, (4, 256, 4096) bf16
         a2a_err, a2a_launches, _, a2a_timing = moe

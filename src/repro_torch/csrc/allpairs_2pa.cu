@@ -22,10 +22,22 @@
 //   - HB: 16-byte vector puts into rank c's element slot [me], then one
 //     release flag per (peer, block); the receiver acquire-spins on its
 //     n - 1 flags and folds its tile from the slots.
-// * AllGather: rank me puts its chunk straight into row block [me] of every
-//   rank's output (its own included), then signals; each rank waits for its
-//   n - 1 arrivals. No rank reads what it received inside the launch, so the
-//   waits only keep the reference's completion contract.
+// * AllGather: rank me stores its chunk into row block [me] of its own
+//   output and sends it to row block [me] of every peer's; each rank waits
+//   for its n - 1 arrivals. Two protocols, picked by the wrapper from a
+//   rank's input bytes (kernels/reducescatter_2pa.py:AG_LL_MAX_BYTES):
+//   - LL (small sizes): each thread owns one packet word of the chunk, puts
+//     it as an LL packet into packet slot [me] of each peer, then loads the
+//     n - 1 packets of its word back to back (their trips overlap), spins
+//     only on one not there yet, and stores each data word into row block
+//     [peer]. Packet arrival is the wait; there is no signal, no fence and
+//     no __syncthreads on the path.
+//   - HB: 16-byte vector puts straight into row block [me] of every rank's
+//     output, then one release flag per (peer, block) and the acquire-spins
+//     on the n - 1 flags; no rank reads what it received inside the launch,
+//     so the waits only keep the reference's completion contract. A packet
+//     carries 4 data bytes in 8, so HB wins once bandwidth, not the
+//     latency of the flag round trip, sets the time.
 //
 // Design as in allreduce_1pa.cu: cooperative launch of `nb` blocks per rank,
 // each owning one contiguous tile of every chunk and (HB) its own flags
@@ -132,6 +144,44 @@ ag_2pa_kernel(const typename Elem<T>::B* __restrict__ x, typename Elem<T>::B* ou
   wait_peers(flags, me, n, b, nb, epoch);
 }
 
+// x: [n][count]; out: [n][n][count] (rank, row block); pk: [receiver]
+// [sender][words] packets, a word being load_word's 4 bytes of a chunk.
+template <typename T>
+__global__ void __launch_bounds__(1024)
+ag_2pa_ll_kernel(const typename Elem<T>::B* __restrict__ x, typename Elem<T>::B* __restrict__ out,
+                 LLPacket* pk, long long count, int n, int nb, unsigned epoch) {
+  using B = typename Elem<T>::B;
+  constexpr int per_word = 4 / sizeof(B);
+  const int me = blockIdx.x / nb, b = blockIdx.x % nb;
+  const long long words = (count + per_word - 1) / per_word;
+  long long lo, hi;
+  tile(words, 1, b, nb, lo, hi);
+  const B* mine = x + me * count;
+  B* rows = out + static_cast<long long>(me) * n * count;  // my n row blocks
+
+  // fan-out: word w of my chunk into every peer's slot [me], and into my
+  // own row block [me]
+  for (long long w = lo + threadIdx.x; w < hi; w += blockDim.x) {
+    const unsigned v = load_word<T>(mine, count, w);
+    for (int i = 1; i < n; ++i) {
+      const int peer = (me + i) % n;
+      put_ll(pk + (static_cast<long long>(peer) * n + me) * words + w, v, epoch);
+    }
+    store_word<T>(rows + me * count, count, w, v);
+  }
+  // each peer's packet of word w into row block [peer]; the packets were
+  // sent at the same time, so once the first has arrived the rest mostly
+  // have too (loading all n - 1 before the first wait measured no faster)
+  const LLPacket* slots = pk + static_cast<long long>(me) * n * words;
+  for (long long w = lo + threadIdx.x; w < hi; w += blockDim.x) {
+    for (int i = 1; i < n; ++i) {
+      const int peer = (me + i) % n;
+      store_word<T>(rows + peer * count, count, w,
+                    read_ll(slots + static_cast<long long>(peer) * words + w, epoch));
+    }
+  }
+}
+
 }  // namespace msccl
 
 extern "C" {
@@ -154,15 +204,17 @@ int reduce_scatter_2pa_launch(const void* x, void* out, void* slots, unsigned* f
                             stream);
 }
 
-// x: [n][count]; out: [n][n][count]; flags: [n][n][blocks].
-int all_gather_2pa_launch(const void* x, void* out, unsigned* flags, int dtype, int n,
-                          long long count, int blocks, unsigned epoch, int threads,
+// x: [n][count]; out: [n][n][count]; for LL (use_ll) `sync` holds
+// [n][n][words] packets, for HB [n][n][blocks] flags.
+int all_gather_2pa_launch(const void* x, void* out, void* sync, int dtype, int n,
+                          long long count, int blocks, int use_ll, unsigned epoch, int threads,
                           void* stream) {
   using namespace msccl;
   if (n < 1 || n > kMaxRanks || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  void* args[] = {&x, &out, &flags, &count, &n, &blocks, &epoch};
-  return launch_cooperative(MSCCL_BY_DTYPE(dtype, ag_2pa_kernel), n * blocks, threads, args,
-                            stream);
+  void* args[] = {&x, &out, &sync, &count, &n, &blocks, &epoch};
+  return launch_cooperative(use_ll ? MSCCL_BY_DTYPE(dtype, ag_2pa_ll_kernel)
+                                   : MSCCL_BY_DTYPE(dtype, ag_2pa_kernel),
+                            n * blocks, threads, args, stream);
 }
 
 const char* allpairs_2pa_error_string(int code) {

@@ -264,18 +264,21 @@ __device__ __forceinline__ void wait_peers(const unsigned* flags, int me, int n,
   __syncthreads();
 }
 
-// dst = srcs[0] + srcs[1] + ... (left fold, rounded per add), elementwise;
-// `srcs` lives in shared memory. Each vector step loads its operands kBatch
-// at a time, all of a batch before its adds, so the loads are in flight
-// together; the fold order is unchanged.
+// dsts[j] = srcs[0] + srcs[1] + ... (left fold, rounded per add),
+// elementwise, for each of the ndst destinations (the sum goes from
+// registers to all of them); `srcs` and `dsts` live in shared memory. Each
+// vector step loads its operands kBatch at a time, all of a batch before
+// its adds, so the loads are in flight together; the fold order is
+// unchanged.
 template <typename T>
-__device__ __forceinline__ void reduce(typename Elem<T>::B* dst,
+__device__ __forceinline__ void reduce(typename Elem<T>::B* const* dsts, int ndst,
                                        const typename Elem<T>::B* const* srcs,
                                        int k, long long count) {
   using B = typename Elem<T>::B;
   constexpr int V = 16 / sizeof(B);
   constexpr int kBatch = 8;
-  bool aligned = (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
+  bool aligned = true;
+  for (int j = 0; j < ndst; ++j) aligned &= (reinterpret_cast<uintptr_t>(dsts[j]) & 15) == 0;
   for (int j = 0; j < k; ++j) aligned &= (reinterpret_cast<uintptr_t>(srcs[j]) & 15) == 0;
   long long done = 0;
   if (aligned) {
@@ -296,15 +299,23 @@ __device__ __forceinline__ void reduce(typename Elem<T>::B* dst,
             for (int e = 0; e < V; ++e) acc.e[e] = Elem<T>::add(acc.e[e], o[u].e[e]);
           }
       }
-      reinterpret_cast<uint4*>(dst)[i] = acc.v;
+      for (int j = 0; j < ndst; ++j) reinterpret_cast<uint4*>(dsts[j])[i] = acc.v;
     }
     done = nv * V;
   }
   for (long long i = done + threadIdx.x; i < count; i += blockDim.x) {
     B acc = ld_cg(srcs[0] + i);
     for (int j = 1; j < k; ++j) acc = Elem<T>::add(acc, ld_cg(srcs[j] + i));
-    dst[i] = acc;
+    for (int j = 0; j < ndst; ++j) dsts[j][i] = acc;
   }
+}
+
+// dst = srcs[0] + srcs[1] + ..., the one-destination fold.
+template <typename T>
+__device__ __forceinline__ void reduce(typename Elem<T>::B* dst,
+                                       const typename Elem<T>::B* const* srcs,
+                                       int k, long long count) {
+  reduce<T>(&dst, 1, srcs, k, count);
 }
 
 // Block b of nb owns units [lo, hi) of `count`: contiguous tiles whose

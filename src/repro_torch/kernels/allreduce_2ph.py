@@ -11,7 +11,11 @@ then gather inside the node again:
 Ranks are stacked node-major (:mod:`repro_torch.mesh`): ``x`` is
 ``(nn*L, L*rows, cols)``, rank ``node*L + l`` at ``x[node*L + l]``, each
 rank's buffer L chunks of ``rows`` rows. The CUDA kernel is
-``csrc/allreduce_2ph.cu``, one cooperative launch for every rank.
+``csrc/allreduce_2ph.cu``, one cooperative launch for every rank. Every
+rank's buffers lie on one card, so its phase 1 reads the local peers'
+inputs (gets) and its phase 2 writes the sum straight into every local
+rank's output: the only scratch is one chunk a rank for the phase-1
+partial, and flags (:func:`scratch_geometry`).
 
 The fold order is the reference kernel's, rounding after each add:
 rank ``(node, l)`` sums its own chunk ``l`` first, then the slots of
@@ -22,6 +26,7 @@ each other and to the reference in f32 and bf16.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -29,10 +34,56 @@ import torch
 from repro_torch.core.channels import MemoryChannel
 from repro_torch.kernels import comm_utils
 
-__all__ = ["all_reduce_2ph", "all_reduce_2ph_plain", "MAX_RANKS"]
+__all__ = ["all_reduce_2ph", "all_reduce_2ph_plain", "scratch_geometry",
+           "traffic_bytes", "Scratch", "MAX_RANKS"]
 
 KERNEL = "all_reduce_2ph"
 MAX_RANKS = 16        # kMaxRanks2ph in csrc/allreduce_2ph.cu: up to 4 x 4
+#: bytes of a sub-tile: the kernel's phase 2 on one sub-tile runs after its
+#: phase 1 on the next, so about two sub-tiles a block of partials are in
+#: flight and stay in L2 (2 x 32 KiB x 264 blocks = 17 MB of its 50 MB)
+SUB_BYTES = 32 << 10
+
+
+@dataclasses.dataclass(frozen=True)
+class Scratch:
+    """The kernel's launch geometry and device scratch for one payload."""
+
+    blocks: int       # blocks a rank
+    sub: int          # elements a sub-tile (a multiple of 16 bytes)
+    subtiles: int     # the most sub-tiles a block's tile holds
+    partial: int      # elements of each rank's phase-1 partial: one chunk
+    flags: int        # entry, ready (one a sub-tile) and done flags, all ranks
+
+
+def scratch_geometry(nn: int, lnum: int, count: int, element_size: int,
+                     max_blocks: int) -> Scratch:
+    """The 2PH kernel's geometry for ``nn`` nodes of ``lnum`` ranks, each
+    holding ``lnum`` chunks of ``count`` elements, with at most
+    ``max_blocks`` blocks resident on the card: one block per TILE_BYTES
+    of a rank's input; block b's tile of a chunk as ``primitives.cuh:tile``
+    cuts it (bounds on 16-byte units); the partial one chunk a rank (D/L,
+    D a rank's input), no D-sized slots."""
+    total = nn * lnum
+    rank_bytes = lnum * count * element_size
+    blocks = max(1, min(max_blocks // total,
+                        -(-rank_bytes // comm_utils.TILE_BYTES)))
+    align = 16 // element_size
+    tile = -(-(-(-count // align)) // blocks) * align
+    sub = SUB_BYTES // element_size
+    subtiles = max(1, -(-tile // sub))
+    return Scratch(blocks=blocks, sub=sub, subtiles=subtiles, partial=count,
+                   flags=total * blocks * (subtiles + 2))
+
+
+def traffic_bytes(nn: int, lnum: int, rank_bytes: int) -> Tuple[int, int]:
+    """(read, written) bytes a rank moves through the kernel by its own
+    count, D = ``rank_bytes``: phase 1 reads D (a tile of its chunk from
+    each local peer) and writes its partial, D/L; phase 2 reads nn
+    partials, nn D/L, and writes D (its chunk into L outputs). The bound
+    is D read and D written."""
+    chunk = rank_bytes // lnum
+    return rank_bytes + nn * chunk, chunk + rank_bytes
 
 
 def _geometry(x: torch.Tensor, node_size: Optional[int]
@@ -127,25 +178,24 @@ def _launch(x: torch.Tensor, nn: int) -> torch.Tensor:
         if cap < total:
             raise RuntimeError(f"the 2PH kernel cannot keep one block per "
                                f"rank resident ({cap} < {total})")
-        blocks = max(1, min(cap // total, -(-x[0].numel() * x.element_size()
-                                             // comm_utils.TILE_BYTES)))
-        flags = torch.zeros(total * (2 * lnum + nn) * blocks,
-                            dtype=torch.int32, device=x.device)
-        return comm_utils.Workspace(blocks, (flags,))
+        geo = scratch_geometry(nn, lnum, count, x.element_size(), cap)
+        flags = torch.zeros(geo.flags, dtype=torch.int32, device=x.device)
+        return comm_utils.Workspace(geo.blocks, (flags,))
 
     ws = comm_utils.workspace(f"{KERNEL}/nodes{nn}", x, make)
     (flags,) = ws.tensors
-    # the phase slots live for one call: scratch contents never matter
-    # (every read waits on its flag), and they go back to the allocator
-    # as soon as the launch is enqueued
-    slots = torch.empty((total, lnum, count), dtype=x.dtype, device=x.device)
-    node_slots = torch.empty((total, nn, count), dtype=x.dtype,
-                             device=x.device)
+    # the same geometry again: a cap of the workspace's blocks gives them back
+    geo = scratch_geometry(nn, lnum, count, x.element_size(),
+                           ws.blocks * total)
+    # the partials live for one call: their contents never matter (every
+    # read waits on its flag), and they go back to the allocator as soon as
+    # the launch is enqueued
+    part = torch.empty((total, geo.partial), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     rc = lib.allreduce_2ph_launch(
-        x.data_ptr(), out.data_ptr(), slots.data_ptr(),
-        node_slots.data_ptr(), flags.data_ptr(), code, nn, lnum, count,
-        ws.blocks, ws.next_epoch(), comm_utils.THREADS,
+        x.data_ptr(), out.data_ptr(), part.data_ptr(), flags.data_ptr(),
+        code, nn, lnum, count, ws.blocks, geo.sub, geo.subtiles,
+        ws.next_epoch(), comm_utils.THREADS,
         torch.cuda.current_stream(x.device).cuda_stream)
     comm_utils.check_launch(rc, lib.allreduce_2ph_error_string, KERNEL, x)
     return out

@@ -165,12 +165,14 @@ def allreduce_1pa_library() -> ctypes.CDLL:
 def allpairs_2pa_library() -> ctypes.CDLL:
     """``csrc/allpairs_2pa.cu``: ``reduce_scatter_2pa_launch(x, out,
     slots, flags, dtype, n, count, blocks, use_ll, epoch, threads,
-    stream)`` and ``all_gather_2pa_launch(x, out, flags, dtype, n, count,
-    blocks, epoch, threads, stream)``."""
+    stream)`` and ``all_gather_2pa_launch(x, out, sync, dtype, n, count,
+    blocks, use_ll, epoch, threads, stream)`` (``sync``: LL packets or HB
+    flags)."""
     return _collective_library("allpairs_2pa", {
         "reduce_scatter_2pa_launch": [_P, _P, _P, _P, _I, _I, _LL, _I, _I,
                                       _U, _I, _P],
-        "all_gather_2pa_launch": [_P, _P, _P, _I, _I, _LL, _I, _U, _I, _P]})
+        "all_gather_2pa_launch": [_P, _P, _P, _I, _I, _LL, _I, _I, _U, _I,
+                                  _P]})
 
 
 def allgather_ring_library() -> ctypes.CDLL:
@@ -197,12 +199,12 @@ def flash_attention_library() -> ctypes.CDLL:
 
 
 def allreduce_2ph_library() -> ctypes.CDLL:
-    """``csrc/allreduce_2ph.cu``: ``allreduce_2ph_launch(x, out, slots,
-    node_slots, flags, dtype, nn, L, count, blocks, epoch, threads,
+    """``csrc/allreduce_2ph.cu``: ``allreduce_2ph_launch(x, out, part,
+    flags, dtype, nn, L, count, blocks, sub, ksub, epoch, threads,
     stream)`` and ``allreduce_2ph_max_blocks(dtype, threads)``."""
     return _collective_library("allreduce_2ph", {
-        "allreduce_2ph_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _U,
-                                 _I, _P],
+        "allreduce_2ph_launch": [_P, _P, _P, _P, _I, _I, _I, _LL, _I, _LL,
+                                 _I, _U, _I, _P],
         "allreduce_2ph_max_blocks": [_I, _I]})
 
 

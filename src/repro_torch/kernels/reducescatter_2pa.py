@@ -14,9 +14,13 @@ The ReduceScatter kernel has two protocols with that one fold, so both
 are bit-equal to the plain version: LL packets (paper §4.2.2; 4 data
 bytes and the launch's epoch in one 8-byte store, the receiver spinning
 on each packet) for a rank's input of at most :data:`LL_MAX_BYTES`, and
-HB (vector puts, then one flag round trip) above it. The reference has
-no protocol argument, so neither does :func:`reduce_scatter_2pa`: the
-bytes decide (:func:`rs_protocol`).
+HB (vector puts, then one flag round trip) above it. The AllGather
+kernel has the same two protocols, LL for a rank's input of at most
+:data:`AG_LL_MAX_BYTES`: every packet carries a word of the chunk straight
+into the peer's output row block, with no fold. The reference has no
+protocol argument, so neither do :func:`reduce_scatter_2pa` and
+:func:`all_gather_2pa`: the bytes decide (:func:`rs_protocol`,
+:func:`ag_protocol`).
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ from repro_torch.kernels import comm_utils
 
 __all__ = ["reduce_scatter_2pa", "all_gather_2pa", "all_reduce_2pa",
            "reduce_scatter_2pa_plain", "all_gather_2pa_plain",
-           "rs_protocol", "ll_words", "LL_MAX_BYTES"]
+           "rs_protocol", "ag_protocol", "ll_words", "LL_MAX_BYTES",
+           "AG_LL_MAX_BYTES"]
 
 RS_KERNEL = "reduce_scatter_2pa"
 AG_KERNEL = "all_gather_2pa"
@@ -39,12 +44,25 @@ AG_KERNEL = "all_gather_2pa"
 #: 700 W): LL is faster up to 512 KiB a rank, HB from 1 MiB (see
 #: PERF.md §6, row 3, for the times).
 LL_MAX_BYTES = 512 << 10
+#: the largest input a rank (its one chunk, in bytes) whose AllGather goes
+#: by LL packets; HB above. Where the two protocols' times cross in
+#: chip_smoke.py phase 8's sweep (n = 4, bf16, NVIDIA H100 80GB HBM3 at
+#: 700 W): LL is faster up to 128 KiB a rank, HB from 256 KiB, where the
+#: packets' 8 bytes on the wire for 4 of data cost more than HB's flag
+#: round trip (see PERF.md §6, row 4, for the times)
+AG_LL_MAX_BYTES = 128 << 10
 
 
 def rs_protocol(nbytes: int) -> str:
     """The ReduceScatter kernel's protocol for a rank input of ``nbytes``:
     ``"ll"`` up to :data:`LL_MAX_BYTES`, else ``"hb"``."""
     return "ll" if nbytes <= LL_MAX_BYTES else "hb"
+
+
+def ag_protocol(nbytes: int) -> str:
+    """The AllGather kernel's protocol for a rank input of ``nbytes``:
+    ``"ll"`` up to :data:`AG_LL_MAX_BYTES`, else ``"hb"``."""
+    return "ll" if nbytes <= AG_LL_MAX_BYTES else "hb"
 
 
 def ll_words(count: int, element_size: int) -> int:
@@ -159,25 +177,38 @@ def _launch_rs(x: torch.Tensor,
     return out
 
 
-def _launch_ag(x: torch.Tensor) -> torch.Tensor:
+def _launch_ag(x: torch.Tensor,
+               protocol: Optional[str] = None) -> torch.Tensor:
+    """One launch of the AllGather kernel; ``protocol`` (``"ll"`` or
+    ``"hb"``) overrides :func:`ag_protocol` for measuring the two side by
+    side. Each protocol keeps its own workspace, so their epochs never
+    mix."""
     from repro_torch.kernels import build
     code = comm_utils.check_kernel_input(x)
     n, rows, cols = x.shape
+    count = rows * cols
+    protocol = protocol or ag_protocol(count * x.element_size())
+    use_ll = protocol == "ll"
 
     def make():
-        blocks = comm_utils.blocks_per_rank(x[0].numel() * x.element_size(),
-                                            n)
-        flags = torch.zeros(n * n * blocks, dtype=torch.int32,
-                            device=x.device)
-        return comm_utils.Workspace(blocks, (flags,))
+        if use_ll:      # a block per THREADS packet words, up to the cap
+            words = ll_words(count, x.element_size())
+            blocks = comm_utils.blocks_per_rank(words, n, comm_utils.THREADS)
+            sync = torch.zeros((n, n, words, 2), dtype=torch.int32,
+                               device=x.device)
+        else:
+            blocks = comm_utils.blocks_per_rank(count * x.element_size(), n)
+            sync = torch.zeros(n * n * blocks, dtype=torch.int32,
+                               device=x.device)
+        return comm_utils.Workspace(blocks, (sync,))
 
-    ws = comm_utils.workspace(AG_KERNEL, x, make)
-    (flags,) = ws.tensors
+    ws = comm_utils.workspace(f"{AG_KERNEL}/{protocol}", x, make)
+    (sync,) = ws.tensors
     out = torch.empty((n, n * rows, cols), dtype=x.dtype, device=x.device)
     lib = build.allpairs_2pa_library()
     rc = lib.all_gather_2pa_launch(
-        x.data_ptr(), out.data_ptr(), flags.data_ptr(), code, n,
-        rows * cols, ws.blocks, ws.next_epoch(), comm_utils.THREADS,
+        x.data_ptr(), out.data_ptr(), sync.data_ptr(), code, n, count,
+        ws.blocks, int(use_ll), ws.next_epoch(), comm_utils.THREADS,
         torch.cuda.current_stream(x.device).cuda_stream)
     comm_utils.check_launch(rc, lib.allpairs_2pa_error_string, AG_KERNEL, x)
     return out

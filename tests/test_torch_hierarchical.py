@@ -10,6 +10,7 @@ the fallback, the cache, plan sets, and the Communicator's collective
 methods against the reference's. The CUDA kernels are held against these
 plain versions on the card by ``chip_smoke.py`` phase 11."""
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +32,7 @@ from repro_torch.core.comm import (Communicator, ExecutionPlan,
                                    hierarchical_all_reduce, load_plan_set,
                                    plan_from_json)
 from repro_torch.core.executor import TorchExecutor
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import allreduce_2ph, build, comm_utils, ops, ref
 from repro_torch.kernels.allreduce_2ph import all_reduce_2ph_plain
 from repro_torch.mesh import RankGrid, group_ranks
 
@@ -142,6 +143,90 @@ def test_2ph_geometry_errors():
         ops.all_reduce(x, algo="2ph", node_size=3)
     with pytest.raises(ValueError, match="do not split into 4 chunks"):
         ops.all_reduce(x[:, :6], algo="2ph", node_size=2)
+
+
+@pytest.mark.parametrize("nn,ln,count,esz,cap", [
+    (2, 4, 512, 2, 264), (2, 4, 37, 4, 264), (2, 2, 1031 * 2048, 4, 264),
+    (2, 4, 1031 * 2048, 2, 264), (4, 4, 1031 * 2048, 4, 264),
+    (2, 4, 151936 * 2048 // 4, 2, 264), (2, 4, 151936 * 2048 // 4, 2, 8)])
+def test_2ph_scratch_geometry(nn, ln, count, esz, cap):
+    """The 2PH kernel's scratch is one chunk a rank (D/L, D a rank's
+    input) for the phase-1 partial and the flags: entry and done one a
+    block, ready one a sub-tile; no D-sized slots. Blocks keep to the
+    resident cap, sub-tiles are 16-byte multiples and cover a block's
+    tile as ``primitives.cuh:tile`` cuts it."""
+    geo = allreduce_2ph.scratch_geometry(nn, ln, count, esz, cap)
+    total, rank_bytes = nn * ln, ln * count * esz
+    assert geo.partial * esz * ln == rank_bytes          # D / L a rank
+    assert geo.flags == total * geo.blocks * (geo.subtiles + 2)
+    assert 1 <= geo.blocks and total * geo.blocks <= max(cap, total)
+    assert geo.sub * esz == allreduce_2ph.SUB_BYTES and geo.sub * esz % 16 == 0
+    align = 16 // esz
+    per = -(-(-(-count // align)) // geo.blocks) * align
+    assert (geo.subtiles - 1) * geo.sub < max(per, 1) <= geo.subtiles * geo.sub
+    # the same geometry again from the blocks it chose, as the wrapper
+    # rebuilds it at every launch
+    assert allreduce_2ph.scratch_geometry(
+        nn, ln, count, esz, geo.blocks * total) == geo
+
+
+@pytest.mark.parametrize("nn,ln", [(2, 2), (2, 4), (4, 4), (4, 2)])
+def test_2ph_traffic_is_under_the_staged_design(nn, ln):
+    """By its own count a rank reads D + nn D/L and writes D/L + D: at 2 x 4
+    that is 2.75 D, against the bound's 2 D and the 5.5 D of a design
+    that puts phase 1 through slots and stages the chunk in the output."""
+    d = ln * 4096
+    read, written = allreduce_2ph.traffic_bytes(nn, ln, d)
+    assert (read, written) == (d + nn * d // ln, d // ln + d)
+    assert 2 * d < read + written < 5.5 * d
+    if (nn, ln) == (2, 4):
+        assert read + written == 2.75 * d
+
+
+def test_2ph_wrapper_allocates_partials_and_flags_only(monkeypatch):
+    """The wrapper, on a stand-in library, hands the kernel its payload's
+    scratch_geometry (blocks, sub-tile, sub-tiles a block) and allocates
+    no scratch beyond the partials (one chunk a rank) and the flags."""
+    calls, scratch = [], []
+
+    class Lib:
+        def allreduce_2ph_max_blocks(self, code, threads):
+            return 264
+
+        def allreduce_2ph_launch(self, *args):
+            calls.append(args)
+            return 0
+
+        def allreduce_2ph_error_string(self, rc):
+            return b""
+
+    def spy(make):
+        def alloc(*a, **k):
+            t = make(*a, **k)
+            scratch.append(t.numel() * t.element_size())
+            return t
+        return alloc
+
+    monkeypatch.setattr(build, "allreduce_2ph_library", Lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    monkeypatch.setattr(comm_utils, "_WORKSPACES", {})
+    monkeypatch.setattr(comm_utils, "LAUNCHES", comm_utils.LAUNCHES.copy())
+    nn, ln, rows, cols = 2, 4, 37, 2048
+    x = torch.zeros(nn * ln, ln * rows, cols, dtype=torch.bfloat16)
+    with monkeypatch.context() as m:
+        m.setattr(torch, "empty", spy(torch.empty))
+        m.setattr(torch, "zeros", spy(torch.zeros))
+        out = allreduce_2ph._launch(x, nn)
+        out = allreduce_2ph._launch(x, nn)     # the flags are made once
+    geo = allreduce_2ph.scratch_geometry(nn, ln, rows * cols, 2, 264)
+    assert out.shape == x.shape and comm_utils.LAUNCHES["all_reduce_2ph"] == 2
+    count, blocks, sub, ksub = calls[0][7:11]
+    assert (count, blocks, sub, ksub) == (rows * cols, geo.blocks, geo.sub,
+                                          geo.subtiles)
+    part = nn * ln * rows * cols * 2                     # D / L a rank
+    assert sorted(scratch) == sorted([geo.flags * 4, part, part])
 
 
 # ---------------------------------------------------------------------------

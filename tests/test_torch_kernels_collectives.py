@@ -390,3 +390,88 @@ def test_reduce_scatter_cpu_tensor_never_reaches_the_library(monkeypatch,
     assert not comm_utils.LAUNCHES
     with pytest.raises(ValueError, match="CUDA tensors only"):
         ops.reduce_scatter(x, backend="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the all-pairs AllGather's protocols (LL packets at small sizes, HB above)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("nbytes,want", [
+    (1024, "ll"), (8 << 10, "ll"), (rs.AG_LL_MAX_BYTES - 1, "ll"),
+    (rs.AG_LL_MAX_BYTES, "ll"), (rs.AG_LL_MAX_BYTES + 1, "hb"),
+    (16 << 20, "hb")],
+    ids=["1KiB", "decode-half", "under", "at", "over", "16MiB"])
+def test_all_gather_protocol_by_bytes(nbytes, want):
+    """A rank's input bytes pick the AllGather's protocol: LL up to
+    AG_LL_MAX_BYTES (the AllGather halves of qwen3-1.7b's TP=4 2PA
+    AllReduces, 8 KiB a rank at decode and 128 KiB at the prefill of 8 x
+    16 tokens, among them), HB above."""
+    assert rs.ag_protocol(nbytes) == want
+
+
+def _ag_ll_model(x, epoch):
+    """The LL AllGather's data path on the channel model: rank me packs
+    its chunk (``pack_ll``) into packet slot [me] of every peer and its own
+    row block [me] straight from x; rank me unpacks slot [peer] into row
+    block [peer]. Returns the output and one rank's packets."""
+    n, rows, cols = x.shape
+    slots = {((me + i) % n, me): pack_ll(x[me].reshape(-1), epoch)
+             for me in range(n) for i in range(1, n)}
+    out = torch.empty((n, n, rows, cols), dtype=x.dtype)
+    for me in range(n):
+        out[me, me] = x[me]
+        for i in range(1, n):
+            peer = (me + i) % n
+            out[me, peer] = unpack_ll(slots[(me, peer)], epoch,
+                                      dtype=x.dtype, shape=(rows, cols))
+    return out.reshape(n, n * rows, cols), slots[(1, 0)]
+
+
+@pytest.mark.parametrize("dtype,rows,cols", [
+    (torch.bfloat16, 3, 129), (torch.bfloat16, 2, 2048),
+    (torch.float32, 3, 129), (torch.float32, 2, 2048)],
+    ids=["bf16-odd", "bf16-even", "f32-odd", "f32-even"])
+def test_all_gather_ll_words_match_the_packets(dtype, rows, cols):
+    """The AllGather's LL workspace holds ``ll_words`` packets a (receiver,
+    sender) pair, which is what ``pack_ll`` makes of a rank's chunk (an odd
+    count of 2-byte elements ends in a half word), and carrying every chunk
+    through those packets gives the plain AllGather bit for bit."""
+    n = 4
+    r = np.random.RandomState(rows * cols)
+    x = torch.from_numpy(r.randn(n, rows, cols).astype(np.float32)).to(dtype)
+    got, packets = _ag_ll_model(x, 9)
+    assert packets.shape == (rs.ll_words(rows * cols, x.element_size()), 2)
+    assert bool((packets[:, 1] == 9).all())
+    assert torch.equal(got, rs.all_gather_2pa_plain(x))
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_all_gather_ll_model_bit_equal_to_jax_kernel(dtype_name):
+    """The LL data path on the reference test's input equals the
+    reference Pallas kernel's output."""
+    x = _torch(_input("all_gather_2pa", 4, dtype_name), dtype_name)
+    got, _ = _ag_ll_model(x, 1)
+    np.testing.assert_array_equal(_numpy(got),
+                                  _jax_outputs(4, dtype_name)["all_gather_2pa"])
+
+
+@pytest.mark.parametrize("side", ["ll", "hb"])
+def test_all_gather_cpu_tensor_never_reaches_the_library(monkeypatch, side):
+    """On either side of the AllGather's threshold a CPU tensor runs the
+    plain version without building or loading the kernel, and asking it
+    for the kernel raises."""
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA library was built or loaded")
+
+    monkeypatch.setattr(build, "_load", refuse)
+    monkeypatch.setattr(build, "nvcc", refuse)
+    monkeypatch.setattr(comm_utils, "LAUNCHES", comm_utils.LAUNCHES.copy())
+    comm_utils.LAUNCHES.clear()
+    n, cols = 4, 512
+    rows = rs.AG_LL_MAX_BYTES // (cols * 4) + (side == "hb")
+    x = torch.randn(n, rows, cols)
+    assert rs.ag_protocol(x[0].numel() * x.element_size()) == side
+    got = ops.all_gather(x, algo="allpairs")
+    assert torch.equal(got, rs.all_gather_2pa_plain(x))
+    assert not comm_utils.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        ops.all_gather(x, algo="allpairs", backend="cuda")
