@@ -14,7 +14,10 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    ``build/`` (one nvcc per source, started together), and fails unless
    the SASS (``cuobjdump -sass``) of the AllGather-matmul library and of
    the flash-attention library each holds wgmma (HGMMA) and TMA loads
-   (UTMALDG) and no ``mma.sync`` (HMMA);
+   (UTMALDG) and no ``mma.sync`` (HMMA), and that of the 1PA library
+   cluster barriers, the multicast bulk copy, the packet stores and PDL,
+   with no cooperative launch in its source (ptxas's registers per 1PA
+   kernel beside them);
 3. kernel vs plain — the DSL-executor kernel against ``TorchExecutor``
    on the card, bit-equal in f32 and bf16, over every registry entry ×
    n in {2, 4, 8} × O0-O3 at three sizes (the last several blocks a rank
@@ -41,6 +44,10 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    ring AllGather): each op × algo × protocol bit-equal to its plain
    version over n in {2, 4, 8} × f32/bf16/int32 × the reference tests'
    shapes and an odd bf16 count, and at qwen3-1.7b's TP=4 serving sizes;
+   the cluster 1PA, LL and HB, bit-equal to its plain version at n = 1..8
+   × f32/bf16/f16/int32 × odd counts and 1 KiB–1 MiB a rank, over chains
+   of 4 launches that alternate the protocols, and over 16 replays of
+   each protocol captured in a CUDA graph;
    the ReduceScatter's LL and HB protocols each forced, and the op that
    picks one by bytes, bit-equal to the plain version on both sides of
    its threshold and at odd counts, n in {2, 4, 8}; the LL flag test (chained calls and a repeated ``step`` on one
@@ -51,7 +58,10 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    at the serving sizes and over a per-rank size sweep at n=4, beside
    its HBM bound, its plain version and a one-call PyTorch yardstick
    (the ReduceScatter and the all-pairs AllGather each with both
-   protocols forced, over a sweep that adds 64-512 KiB); the AllGather's
+   protocols forced, over a sweep that adds 64-512 KiB; the 1PA beside
+   an empty kernel of its launch geometry, its own time without PDL and,
+   at the decode size, its time behind qwen3-1.7b's o_proj matmul with
+   and without PDL); the AllGather's
    LL and HB protocols each forced, and the op, bit-equal to the plain
    version on both sides of its threshold at odd counts, n in {2, 4, 8} x
    f32/bf16/f16/int32, and over back-to-back launches that alternate the
@@ -381,6 +391,43 @@ def phase_build():
     for lib, ops in sass.items():
         check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
               f"{lib} SASS: {ops} (want HGMMA and UTMALDG, no HMMA)")
+    _check_1pa_build(libs["allreduce_1pa"], build)
+
+
+# the cluster 1PA's SASS: cluster barriers (UCGABAR_*), the multicast bulk
+# copy (UBLKCP.S.G.MULTICAST) and its mbarrier wait (SYNCS.PHASECHK), the
+# packets' 8-byte stores into peers' shared memory (ST.E.64*), and PDL's
+# griddepcontrol.wait / launch_dependents (ACQBULK / PREEXIT)
+AR1PA_SASS = {"UCGABAR_ARV": r"UCGABAR_ARV", "UCGABAR_WAIT": r"UCGABAR_WAIT",
+              "UBLKCP.S.G.MULTICAST": r"UBLKCP\.S\.G\.MULTICAST",
+              "SYNCS.PHASECHK": r"SYNCS\.PHASECHK\S*",
+              "ST.E.64": r"ST\.E\.64\S*", "ACQBULK": r"ACQBULK",
+              "PREEXIT": r"PREEXIT"}
+
+
+def _check_1pa_build(path, build):
+    """The 1PA library holds cluster barriers, the multicast bulk copy,
+    the packet stores and PDL in SASS; its source makes no cooperative
+    launch; ptxas's registers and stack for each of its kernels."""
+    text = subprocess.run(
+        [str(pathlib.Path(build.nvcc()).parent / "cuobjdump"), "-sass",
+         str(path)], capture_output=True, text=True, check=True,
+        timeout=300).stdout
+    ops = {name: len(re.findall(rf"\b{rx}", text))
+           for name, rx in AR1PA_SASS.items()}
+    src = re.sub(r"//[^\n]*", "", (ROOT / COLLECTIVES["all_reduce_1pa"][0])
+                 .read_text())
+    cooperative = len(re.findall(r"launch_cooperative|"
+                                 r"cudaLaunchCooperativeKernel", src))
+    # "Compiling entry function 'name'" ... "Used N registers, ..." a kernel
+    log = build.last_build["allreduce_1pa"]["log"]
+    kernels = dict(re.findall(r"Compiling entry function '(\S+)'.*?"
+                              r"ptxas info\s*: (Used [^\n]*)", log, re.S))
+    emit("build_1pa", sass=ops, cooperative_launches_in_source=cooperative,
+         ptxas=kernels)
+    check(all(ops.values()) and cooperative == 0,
+          f"1PA SASS {ops}, cooperative launches in its source "
+          f"{cooperative} (want every op, no cooperative launch)")
 
 
 def _decode_plans(device):
@@ -811,8 +858,9 @@ def _collectives_vs_plain(device, gen):
             x = _rand((TP,) + shape, dtype, gen, device)
             held(op, kw, kernels, x, f"{label} {dtype} {tuple(x.shape)}")
 
-    # LL flag test: calls chained on one workspace, then fresh data with
-    # the same step (the card's test_all_reduce_1pa_distinct_steps)
+    # LL flag test: calls chained, then fresh data with the same step (the
+    # card's test_all_reduce_1pa_distinct_steps; the kernel keeps no flags
+    # between launches, it resets them in shared memory)
     shape, dtype = sizes["decode"]
     for use_ll in (True, False):
         x = _rand((TP,) + shape, dtype, gen, device)
@@ -824,10 +872,85 @@ def _collectives_vs_plain(device, gen):
                                   backend="torch")
             torch.cuda.synchronize()
             check(torch.equal(y, want), f"1PA use_ll={use_ll} step={step} "
-                  f"fresh={fresh}: kernel != plain on a reused workspace")
+                  f"fresh={fresh}: kernel != plain on chained calls")
             cases += 1
             x = y
     return cases, errs
+
+
+def _1pa_shapes(esz):
+    """(rows, cols) a rank of the 1PA grid: odd counts (1, 387, 5115 and
+    260865 elements) and 1 KiB, 32 KiB and 1 MiB a rank."""
+    return ((1, 1), (3, 129), (5, 1023), (255, 1023), (1, 1024 // esz),
+            (8, 4096 // esz), (256, 4096 // esz))
+
+
+def _1pa_vs_plain(device, gen):
+    """The cluster 1PA kernel, LL and HB, bit-equal to its plain version
+    at n = 1..8 (cluster shapes of 1 to 8 blocks, 3, 5, 6, 7 among them) x
+    f32/bf16/f16/int32 x ``_1pa_shapes``; then, per n and type, chains of
+    4 launches back to back on two inputs (an odd count and 32 KiB a rank)
+    that alternate the protocols, each output held after one
+    synchronisation."""
+    from repro_torch.kernels import allreduce_1pa as ap
+    cases, err = 0, 0.0
+
+    def held(got, x, ll, what):
+        nonlocal cases, err
+        want = ap.all_reduce_1pa_plain(x, use_ll=ll)
+        err = max(err, (got.double() - want.double()).abs().max().item())
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"1PA {'LL' if ll else 'HB'} {what} != plain: {x.dtype} "
+              f"{tuple(x.shape)}")
+        cases += 1
+
+    for n in range(1, 9):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16,
+                      torch.int32):
+            esz = torch.empty((), dtype=dtype).element_size()
+            for shape in _1pa_shapes(esz):
+                x = _rand((n,) + shape, dtype, gen, device)
+                for ll in (True, False):
+                    got = ap.all_reduce_1pa(x, use_ll=ll)
+                    torch.cuda.synchronize()
+                    held(got, x, ll, f"n={n}")
+            xs = [_rand((n, 3, 2047), dtype, gen, device),
+                  _rand((n, 8, 4096 // esz), dtype, gen, device)]
+            chain = [(xs[i], ll, ap.all_reduce_1pa(xs[i], use_ll=ll))
+                     for i, ll in ((0, True), (1, False), (1, True),
+                                   (0, False))]
+            torch.cuda.synchronize()
+            for i, (x, ll, got) in enumerate(chain):
+                held(got, x, ll, f"alternating launch {i} n={n}")
+    return dict(cases=cases, max_abs_err=err, n=list(range(1, 9)))
+
+
+def _1pa_graph_replay(device, gen):
+    """The LL and HB 1PA, each captured once in a CUDA graph at the decode
+    size and replayed 16 times on fresh inputs copied into the captured
+    one, each replay bit-equal to the plain version: the kernel takes no
+    epoch and no workspace, so a replay needs nothing from the host."""
+    from repro_torch.kernels import allreduce_1pa as ap
+    shape, dtype = _serving_sizes()["decode"]
+    replays, err = 0, 0.0
+    for ll in (True, False):
+        x = _rand((TP,) + shape, dtype, gen, device)
+        ap.all_reduce_1pa(x, use_ll=ll)        # the cluster query, once
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = ap.all_reduce_1pa(x, use_ll=ll)
+        for i in range(16):
+            x.copy_(_rand((TP,) + shape, dtype, gen, device))
+            graph.replay()
+            torch.cuda.synchronize()
+            want = ap.all_reduce_1pa_plain(x, use_ll=ll)
+            err = max(err, (y.double() - want.double()).abs().max().item())
+            check(torch.equal(y, want), f"1PA {'LL' if ll else 'HB'} graph "
+                  f"replay {i} != plain")
+            replays += 1
+        del graph
+    return dict(replays=replays, max_abs_err=err, shape=[TP, *shape])
 
 
 def _threshold_shapes(n, esz, limit):
@@ -979,6 +1102,45 @@ def _collectives_main_path(device, gen):
                 outputs_checked=len(outs))
 
 
+def _1pa_timing(x, ll, iters, label, gen, device):
+    """The 1PA row's launch geometry, the device time of an empty kernel
+    of the same grid, clusters, threads and shared memory back to back
+    (its launch floor), its own time without PDL, and at the decode size
+    its time behind qwen3-1.7b's TP=4 o_proj matmul, ``(8, 512) @ (512,
+    2048)`` a rank: the pair's time minus the matmul's, with and without
+    PDL."""
+    from repro_torch import configs
+    from repro_torch.kernels import allreduce_1pa as ap
+    from repro_torch.kernels import build, comm_utils
+    n = x.shape[0]
+    geo = ap.geometry(n, x[0].numel(), x.element_size(), ll)
+    lib = build.allreduce_1pa_library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def empty():
+        rc = lib.allreduce_1pa_empty_launch(n, geo.tiles, geo.smem_bytes,
+                                            comm_utils.THREADS, stream)
+        check(rc == 0, f"empty cluster launch: "
+              f"{lib.allreduce_1pa_error_string(rc).decode()}")
+
+    out = dict(tiles=geo.tiles, cluster=geo.cluster, grid=geo.grid,
+               tile_bytes=geo.tile_bytes, smem_bytes=geo.smem_bytes,
+               launch_floor_ms=device_ms(empty, iters)[0],
+               ms_no_pdl=device_ms(lambda: ap._launch(x, ll, pdl=False),
+                                   iters)[0])
+    if label == "decode":
+        cfg = configs.get_config(ARCH)
+        k = cfg.n_heads * cfg.head_dim // TP
+        a = _rand((n, x.shape[1], k), x.dtype, gen, device)
+        w = _rand((n, k, x.shape[2]), x.dtype, gen, device)
+        mm = device_ms(lambda: torch.bmm(a, w), iters)[0]
+        for key, pdl in (("pair_ms", True), ("pair_ms_no_pdl", False)):
+            out[key] = device_ms(lambda pdl=pdl: ap._launch(
+                torch.bmm(a, w), ll, pdl=pdl), iters)[0] - mm
+        out.update(matmul_ms=mm, matmul=[list(a.shape), list(w.shape)])
+    return out
+
+
 def _collectives_time(device, gen):
     """Device time of each kernel at the serving sizes and over a per-rank
     size sweep at n=4 (bf16), beside the HBM bound (each rank's input
@@ -1053,7 +1215,8 @@ def _collectives_time(device, gen):
                 ws_name = kernel
                 extra = {}
                 if kernel == "all_reduce_1pa":
-                    ws_name += f"/{'ll' if kw.get('use_ll', True) else 'hb'}"
+                    extra = _1pa_timing(x, kw.get("use_ll", True), iters,
+                                        label, gen, device)
                 elif kernel in ("reduce_scatter_2pa", "all_gather_2pa"):
                     # both protocols forced, beside the one the op picks
                     pick, launch = ((rs.rs_protocol, rs._launch_rs)
@@ -1065,11 +1228,13 @@ def _collectives_time(device, gen):
                         extra[f"{proto}_ms"] = device_ms(
                             lambda x=x, proto=proto, launch=launch:
                             launch(x, proto), iters)[0]
+                if kernel != "all_reduce_1pa":     # the 1PA keeps none
+                    extra["blocks_per_rank"] = comm_utils.workspace(
+                        ws_name, x).blocks
                 rows_out[kernel].append(dict(
                     op=op, **kw, size=label, n=n, rows=rows, cols=cols,
                     dtype=str(dtype).replace("torch.", ""),
                     rank_bytes=rank_bytes,
-                    blocks_per_rank=comm_utils.workspace(ws_name, x).blocks,
                     ms=k_ms, ms_wall=wall_ms(kern, iters), plain_ms=p_ms,
                     library_ms=l_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                     bytes=nbytes, **extra, sleep_covered=dict(
@@ -1082,6 +1247,11 @@ def _collectives_time(device, gen):
 def phase_collectives(device, gen):
     t = time.perf_counter()
     cases, errs = _collectives_vs_plain(device, gen)
+    grid_1pa = _1pa_vs_plain(device, gen)
+    graph_1pa = _1pa_graph_replay(device, gen)
+    errs["all_reduce_1pa"] = max(errs["all_reduce_1pa"],
+                                 grid_1pa["max_abs_err"],
+                                 graph_1pa["max_abs_err"])
     protocols = _rs_protocols_vs_plain(device, gen)
     errs["reduce_scatter_2pa"] = max(errs["reduce_scatter_2pa"],
                                      protocols["max_abs_err"])
@@ -1090,7 +1260,8 @@ def phase_collectives(device, gen):
                                  ag_protocols["max_abs_err"])
     main = _collectives_main_path(device, gen)
     timing = _collectives_time(device, gen)
-    emit("collectives", cases=cases, max_abs_err=errs,
+    emit("collectives", cases=cases, max_abs_err=errs, ar_1pa=grid_1pa,
+         ar_1pa_graph=graph_1pa,
          rs_protocols=protocols, ag_protocols=ag_protocols, main_path=main,
          shapes=timing,
          seconds=round(time.perf_counter() - t, 3))
@@ -2560,6 +2731,15 @@ def main(argv=None) -> int:
             label, ll = at[name]
             row = size_row(name, label, ll)
             extra = {}
+            if name == "all_reduce_1pa":
+                hb = size_row(name, label, False)
+                extra.update(
+                    {k: row[k] for k in ("launch_floor_ms", "pair_ms",
+                                         "pair_ms_no_pdl", "ms_no_pdl",
+                                         "tiles", "cluster", "smem_bytes")},
+                    hb={k: hb[k] for k in keys + ("launch_floor_ms",
+                                                  "pair_ms",
+                                                  "pair_ms_no_pdl")})
             if name == "all_gather_2pa":
                 extra["size"] = label
                 extra["decode_half"] = {

@@ -16,9 +16,8 @@
 //     LLPacket, 4 data bytes and the launch's epoch in one 8-byte store) into
 //     rank c's packet slot [me]; rank c's threads spin on each packet and
 //     fold as the packets arrive. Each thread owns one packet word of the
-//     chunk; there is no signal, no fence and no __syncthreads on the path,
-//     as in allreduce_1pa.cu's LL kernel. The launch and one packet's trip
-//     are the whole latency.
+//     chunk; there is no signal, no fence and no __syncthreads on the path.
+//     The launch and one packet's trip are the whole latency.
 //   - HB: 16-byte vector puts into rank c's element slot [me], then one
 //     release flag per (peer, block); the receiver acquire-spins on its
 //     n - 1 flags and folds its tile from the slots.
@@ -39,11 +38,11 @@
 //     carries 4 data bytes in 8, so HB wins once bandwidth, not the
 //     latency of the flag round trip, sets the time.
 //
-// Design as in allreduce_1pa.cu: cooperative launch of `nb` blocks per rank,
-// each owning one contiguous tile of every chunk and (HB) its own flags
-// [receiver][sender][block]; release/acquire flags and packets tagged with a
-// per-workspace epoch, so nothing is reset between launches; no entry or
-// exit barrier (one launch holds every rank).
+// Design: cooperative launch of `nb` blocks per rank, each owning one
+// contiguous tile of every chunk and (HB) its own flags [receiver][sender]
+// [block]; release/acquire flags and packets tagged with a per-workspace
+// epoch, so nothing is reset between launches; no entry or exit barrier
+// (one launch holds every rank).
 //
 // Bound on an H100: HBM bytes. RS reads n chunks and writes one per rank;
 // AG reads one chunk and writes n per rank. At decode sizes (tens of KB) the

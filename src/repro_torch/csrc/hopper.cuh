@@ -1,12 +1,13 @@
-// Hopper (sm_90a) building blocks shared by the port's wgmma kernels: the
+// Hopper (sm_90a) building blocks shared by the port's wgmma kernels, the
 // AllGather-matmul (collective_matmul.cu) and flash attention
-// (flash_attention.cu).
+// (flash_attention.cu), and by the cluster 1PA AllReduce (allreduce_1pa.cu).
 //
 // * mbarriers: init, arrive, arrive with an expected TMA byte count, and a
 //   bounded parity wait (a lost TMA or arrival traps instead of hanging, as
 //   msccl::spin_until does);
 // * TMA: 3-D tensor-map loads into shared memory completing on an
-//   mbarrier, and stores out of it; bulk copies without a tensor map; the
+//   mbarrier, and stores out of it; bulk copies without a tensor map (into
+//   one block or multicast into several of a cluster); the
 //   proxy fences between generic-proxy writes and async-proxy reads;
 // * a warpgroup index the compiler knows is warp-uniform;
 // * wgmma: shared-memory descriptors for K-major and MN-major operands in a
@@ -141,6 +142,17 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
           smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// the same copy multicast: it lands at `dst`'s offset in the shared memory of
+// every block of the cluster whose bit is set in `mask`, each completing the
+// bytes on the mbarrier at `bar`'s offset in that block
+__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src, unsigned bytes,
+                                                    uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1], %2, [%3], %4;" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
       : "memory");
 }
 __device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {

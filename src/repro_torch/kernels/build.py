@@ -155,11 +155,19 @@ def _collective_library(stem: str, launchers: Dict[str, list]) -> ctypes.CDLL:
 
 
 def allreduce_1pa_library() -> ctypes.CDLL:
-    """``csrc/allreduce_1pa.cu``: ``allreduce_1pa_launch(x, out, slots,
-    flags, dtype, n, count, blocks, use_ll, epoch, threads, stream)``."""
+    """``csrc/allreduce_1pa.cu``: ``allreduce_1pa_launch(x, out, dtype, n,
+    count, tile_elems, tiles, slot_bytes, smem, use_ll, threads, stream,
+    pdl)`` (one cluster of n blocks a tile), ``allreduce_1pa_prepare(dtype,
+    use_ll, n, smem, threads, &clusters)`` (the shape's
+    ``cudaOccupancyMaxActiveClusters``) and ``allreduce_1pa_empty_launch(n,
+    tiles, smem, threads, stream)`` (an empty kernel of the same launch
+    geometry)."""
     return _collective_library("allreduce_1pa", {
-        "allreduce_1pa_launch": [_P, _P, _P, _P, _I, _I, _LL, _I, _I, _U,
-                                 _I, _P]})
+        "allreduce_1pa_launch": [_P, _P, _I, _I, _LL, _LL, _I, _I, _I, _I,
+                                 _I, _P, _I],
+        "allreduce_1pa_prepare": [_I, _I, _I, _I, _I,
+                                  ctypes.POINTER(ctypes.c_int)],
+        "allreduce_1pa_empty_launch": [_I, _I, _I, _I, _P]})
 
 
 def allpairs_2pa_library() -> ctypes.CDLL:

@@ -22,10 +22,11 @@ __all__ = ["check_2d", "ring_neighbors", "resolve_backend",
 
 MAX_RANKS = 8            # kMaxRanks: one launch holds at most 8 rank blocks
 THREADS = 512            # threads per block of every collective kernel
-# blocks per rank: one per TILE_BYTES of a rank's input (1PA LL: one per
-# THREADS packet words), at most MAX_BLOCKS over all ranks, so every block
-# is resident at once on an H100 (132 SMs) and the cooperative launch is
-# accepted
+# blocks per rank of the cooperative kernels: one per TILE_BYTES of a rank's
+# input (2PA LL: one per THREADS packet words), at most MAX_BLOCKS over all
+# ranks, so every block is resident at once on an H100 (132 SMs) and the
+# cooperative launch is accepted. The 1PA launches clusters instead
+# (allreduce_1pa.geometry)
 TILE_BYTES = 8192
 MAX_BLOCKS = 128
 EPOCH_MAX = 0x7FFFFFFF   # flags are int32 in the plain model (pack_ll)
