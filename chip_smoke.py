@@ -22,23 +22,39 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    on the card, bit-equal in f32 and bf16, over every registry entry ×
    n in {2, 4, 8} × O0-O3 at three sizes (the last several blocks a rank
    with a ragged last tile), and the decode plans of qwen3-1.7b and of
-   phi3.5-moe (its ``moe_alltoall`` among them) at TP 2/4;
+   phi3.5-moe (its ``moe_alltoall`` among them) at TP 2/4; then each
+   decode plan (every bucket) in f32 and bf16 captured once in a CUDA
+   graph (one executor node, cooperative) and replayed 16 times on fresh
+   inputs with an eager call of the same executor between replays, each
+   bit-equal to ``TorchExecutor`` (the kernel keeps its epoch on the
+   card);
 4. main path — full-width qwen3-1.7b (28 layers, seeded random bf16
    weights), TP=4 stacked on the card: 8 requests of 16-token prompts,
-   then 32 greedy tokens, in auto and in explicit mode. Explicit must
-   run on the kernel with exactly 58 launches per step and match auto's
-   first-step logits within the stated bf16 tolerance;
+   then 32 greedy tokens, in auto, explicit, auto with the int8 KV cache
+   and explicit with it. The engine captures its step in a CUDA graph
+   and serves by replaying it; the same engine then serves again from
+   position 0 with the eager step: first-step logits bit-equal and
+   every token equal. Explicit runs on the kernel: 58 launches captured
+   (the wrapper's count over the engine's construction is the warm-up
+   steps' and the capture's, none while replaying), 58 a step eager,
+   and a profiler count of 58 executor kernels a replay over 4 replays.
+   Explicit matches auto's first-step logits within the stated bf16
+   tolerance, with the bf16 and with the int8 cache; the int8 cache's
+   last prefill logits lie within the reference's bar of the bf16
+   cache's (max abs error under 5 % of max abs, argmax agreement at
+   least 0.5). Graph and eager ms/token, and the busy share under
+   replay;
 5. f32 at full width, 4 layers: explicit and auto greedy tokens equal
-   over 16 steps;
+   over 16 steps (served by graph replay, each against its eager run);
 6. kernel time at each decode shape (the AllReduce and AllGather plans
    of qwen3-1.7b and of phi3.5-moe, and phi3.5-moe's all_to_all plans)
    beside its HBM bound, the plain version and a one-call PyTorch
    yardstick, with the launch's blocks a rank and threads, and the same
    program's time on 8 elements a chunk (launch and flags, no copies);
 7. (opt-in, ``--phases 7``) a ``torch.profiler`` breakdown of one
-   decode step in each mode, for the main paths of phases 4 and 9, and
-   of one prefill forward of each phase-10 model: device busy share and
-   the top kernels;
+   decode step in each mode, for the main paths of phases 4 and 9, by
+   graph replay and eager, and of one prefill forward of each phase-10
+   model: device busy share and the top kernels;
 8. collective library — ``repro_torch.kernels.ops`` and its four
    kernels (1PA AllReduce LL/HB, all-pairs ReduceScatter and AllGather,
    ring AllGather): each op × algo × protocol bit-equal to its plain
@@ -73,9 +89,12 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    path — phi3.5-moe at full width, depth cut to 8 of its 32 layers
    (32 do not fit one 80 GB card), TP=EP=4 stacked on the card, 8
    requests of 16-token prompts then 32 greedy tokens in auto and
-   explicit mode: explicit runs on the executor kernel with exactly
-   3L + 2 = 26 launches per step (embedding and attention AllReduces,
-   dispatch and combine all_to_all per layer, logits AllGather) and
+   explicit mode, by graph replay, each against the eager step on the
+   same engine (first-step logits bit-equal, tokens equal): explicit
+   runs on the executor kernel with exactly 3L + 2 = 26 launches per
+   step (embedding and attention AllReduces, dispatch and combine
+   all_to_all per layer, logits AllGather; captured, eager, and by the
+   profiler over 4 replays) and
    matches auto's first-step logits within the bf16 tolerance with the
    routing pinned to auto's; unpinned, at most 2 of 8 rows route a
    token elsewhere, each first at a router near-tie that bf16 rounding
@@ -100,8 +119,9 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    within 1e-2 on its own inputs, and two controls in plain torch (the
    kernel's rounding inside both limits, a skipped key tile past 1e-2);
    qwen3-1.7b's fused prefill against the engine's token by token (8 x
-   128 tokens; bf16 within 0.05, f32 at 4 layers within 1e-4 with equal
-   argmax); and the kernel's device and wall time at each main-path
+   128 tokens, through its CUDA graph; bf16 within 0.05, f32 at 4 layers
+   within 1e-4 with equal argmax); and the kernel's device and wall time
+   at each main-path
    shape beside its bound, its plain version and
    ``scaled_dot_product_attention`` (and its factor against that);
 11. hierarchical 2PH and AllGather-matmul — the 2PH AllReduce kernel
@@ -143,7 +163,11 @@ JSON object, and ``{"ok": true, "device": {...}}``. The whole record,
 the kernels line among it, also goes to ``chiprun_out/chip_smoke.json``.
 The kernels line holds one entry per kernel. The executor's times are
 the launch-weighted mean of both main paths' decode mixes, each path's
-own under ``by_path`` and every shape's under ``per_shape``; its group
+own under ``by_path`` and every shape's under ``per_shape``; its
+``launches`` are the wrapper's over the main paths (the engines'
+warm-up steps and captures), ``launches_profiled`` the executor kernels
+that the profiler counted over ``replays_profiled`` later replays of
+the same graphs; its group
 view on phase 11's hierarchical replays is an entry of its own
 (``dsl_executor_group_view``: the replays' times over their launches,
 each leaf's replay under ``per_shape``); flash
@@ -157,6 +181,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import pathlib
 import re
@@ -178,6 +203,11 @@ MAX_KV = 1024
 # bf16 first-step logits, explicit vs auto: TP partials are rounded to
 # bf16 and summed in the plan's order, auto accumulates each matmul once
 BF16_REL_TOL = 0.05                # ||explicit - auto|| / ||auto||
+# the int8 KV cache against the bf16 cache, the reference's bar
+# (tests/test_kv_quant.py): max abs error over max abs, argmax agreement
+INT8_REL_TOL, INT8_ARGMAX_AGREEMENT = 0.05, 0.5
+# phase 3: replays of each decode plan's capture, eager calls between
+GRAPH_REPLAYS = 16
 # MoE in bf16: at most this many of the batch's rows may route a token
 # to other experts than auto (each at a router near-tie, see
 # _moe_first_step)
@@ -523,35 +553,81 @@ def phase_kernel_vs_plain(device, gen):
                                flag_slots=enc.n_flags,
                                puts_per_rank=int((enc.ops[0, :, 0]
                                                   == OPCODES["put"]).sum())))
+    graphs = _plans_graph_replay(device, gen, families)
+    max_err = max(max_err, graphs["max_abs_err"])
     emit("kernel_vs_plain", cases=cases, max_abs_err=max_err,
          blocks_per_rank=sorted(blocks), threads=THREADS,
-         decode_shapes=shapes)
+         decode_shapes=shapes, graph_replay=graphs)
     return max_err
 
 
-def _run_engine(cfg, params, prompts, mode, n_decode, count_launches,
-                keep_params=False):
-    """Serve ``prompts`` then ``n_decode`` greedy tokens; returns the
-    first step's logits, the last prefill logits, the tokens, ms/token
-    of the decode loop, the kernel launches seen per step and, with
-    ``keep_params``, the engine's params (rank-stacked when explicit)."""
+def _plans_graph_replay(device, gen, families):
+    """Every decode plan's program (each bucket of each family), in f32
+    and bf16, on an executor of its own: captured once in a CUDA graph,
+    then replayed GRAPH_REPLAYS times on fresh inputs copied into the
+    captured one, with an eager call of the same executor (same flags and
+    epoch words) between replays. Each replay and each eager call is
+    bit-equal to ``TorchExecutor``: the kernel's epoch lives on the card,
+    so a replay does not reuse the epoch it captured, and the capture
+    keeps the launch cooperative (its graph node says so)."""
+    from repro_torch.core.executor import (CudaExecutor, TorchExecutor,
+                                           graph_nodes)
+    replays = eager = captures = 0
+    err = 0.0
+    for arch, tp, pname, bp in families:
+        for b, plan in bp.plans.items():
+            shape = (tp, plan.shape[0] + plan.pad, plan.shape[1])
+            plain = TorchExecutor(plan.program).prepare(tp)
+            for dtype in (torch.float32, torch.bfloat16):
+                kern = CudaExecutor(plan.program).prepare(tp)
+                x = torch.randn(shape, generator=gen, device=device).to(dtype)
+                kern(x)                      # bind outside the capture
+                torch.cuda.synchronize()
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                with torch.cuda.graph(graph):
+                    y = kern(x)
+                nodes, coop = graph_nodes(graph)
+                check(nodes == coop == 1, f"{arch} {pname} tp={tp} rows={b} "
+                      f"{dtype}: {nodes} executor nodes, {coop} cooperative")
+                graph.instantiate()
+                captures += 1
+                for i in range(GRAPH_REPLAYS):
+                    x.copy_(torch.randn(shape, generator=gen, device=device))
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    want = plain(x)
+                    err = max(err, (y.float() - want.float()).abs().max()
+                              .item())
+                    check(torch.equal(y, want), f"graph replay {i} != plain: "
+                          f"{arch} {pname} tp={tp} rows={b} {dtype}")
+                    replays += 1
+                    z = torch.randn(shape, generator=gen, device=device).to(
+                        dtype)
+                    got = kern(z)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, plain(z)), f"eager call after "
+                          f"replay {i} != plain: {arch} {pname} tp={tp} "
+                          f"rows={b} {dtype}")
+                    eager += 1
+                del graph, y
+    return dict(captures=captures, replays=replays, eager_between=eager,
+                max_abs_err=err)
+
+
+def _serve(eng, prompts, n_decode):
+    """Serve ``prompts`` then ``n_decode`` greedy tokens on ``eng`` from
+    position 0: the first step's logits, the last prefill logits, the
+    tokens, ms/token of the decode loop and the executor launches the
+    wrapper made in the first step."""
     from repro_torch.core.executor import CudaExecutor
-    from repro_torch.serve.engine import Engine, ServeConfig
-    eng = Engine(cfg, params, ServeConfig(batch=prompts.shape[0],
-                                          max_kv=MAX_KV), tp=TP, mode=mode)
-    if mode == "explicit":
-        backends = {p.backend for bp in eng.decode_plans.values()
-                    for p in bp.plans.values()}
-        check(backends == {"cuda"}, f"explicit plans on {backends}")
     dev = eng.device
     torch.cuda.synchronize()
-    if count_launches:
-        CudaExecutor.launches = 0           # just before the main path
+    before = CudaExecutor.launches
     first = eng._run_step(torch.as_tensor(prompts[:, 0], dtype=torch.long,
                                           device=dev))
     eng.pos += 1
     torch.cuda.synchronize()
-    first_step_launches = CudaExecutor.launches
+    first_step_launches = CudaExecutor.launches - before
     logits = eng.prefill(prompts[:, 1:])
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -559,16 +635,151 @@ def _run_engine(cfg, params, prompts, mode, n_decode, count_launches,
     toks = eng.decode(logits, num_tokens=n_decode)
     e1.record()
     torch.cuda.synchronize()
-    launches = CudaExecutor.launches        # read just after
-    out = dict(first=first.float().cpu(), last=logits.float().cpu(),
-               tokens=toks, ms_per_token=e0.elapsed_time(e1) / n_decode,
-               launches=launches, first_step_launches=first_step_launches,
-               plans={k: {b: p.algo for b, p in bp.plans.items()}
-                      for k, bp in eng.decode_plans.items()})
+    return dict(first=first.float().cpu(), last=logits.float().cpu(),
+                tokens=toks, ms_per_token=e0.elapsed_time(e1) / n_decode,
+                first_step_launches=first_step_launches)
+
+
+def _executor_kernels(prof):
+    """Executor kernel launches in a profile (graph replays included)."""
+    from torch.autograd import DeviceType
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and "dsl_executor_kernel" in e.key)
+
+
+def _profile_replays(eng, steps, ms_per_token):
+    """``steps`` replays of the engine's graph under ``torch.profiler``:
+    the executor kernels it ran, device busy ms a step and the busy share
+    of the graph's unprofiled ms/token."""
+    from torch.profiler import ProfilerActivity, profile
+    tok = torch.zeros(eng.scfg.batch, dtype=torch.long, device=eng.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng._run_step(tok)
+            eng.pos += 1
+        torch.cuda.synchronize()
+    busy_ms = sum(r[0] for r in _device_rows(prof, steps)) / 1e3
+    return dict(profiled_executor_kernels=_executor_kernels(prof),
+                profiled_replays=steps, device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / ms_per_token)
+
+
+def _run_engine(cfg, params, prompts, mode, n_decode, count_launches,
+                keep_params=False, kv_quant=False, profile_steps=0):
+    """One engine on the card (its step captured in a CUDA graph at
+    construction), driven twice from position 0 on the same state: by
+    graph replay, then, with the cache zeroed, by the eager step. Returns
+    the graph run's record (first-step logits, last prefill logits,
+    tokens, ms/token) with the eager run's under ``eager``, the executor
+    launches the capture recorded (``graph_launches``), the wrapper's
+    launches over the main path (engine construction — warm-up and
+    capture — and the graph-served tokens; set to 0 just before with
+    ``count_launches``), the eager run's launches, and, with
+    ``profile_steps``, a profiler count of the executor kernels over that
+    many replays with the busy share under replay. Checks graph against
+    eager: first-step logits bit-equal and every token equal."""
+    from repro_torch.core.executor import CudaExecutor
+    from repro_torch.serve.engine import Engine, ServeConfig
+    torch.cuda.synchronize()
+    if count_launches:
+        CudaExecutor.launches = 0           # just before the main path
+    eng = Engine(cfg, params, ServeConfig(batch=prompts.shape[0],
+                                          max_kv=MAX_KV, kv_quant=kv_quant),
+                 tp=TP, mode=mode)
+    check(eng.graph is not None, "the engine captured no graph")
+    if mode == "explicit":
+        backends = {p.backend for bp in eng.decode_plans.values()
+                    for p in bp.plans.values()}
+        check(backends == {"cuda"}, f"explicit plans on {backends}")
+    out = _serve(eng, prompts, n_decode)
+    torch.cuda.synchronize()
+    # read just after (an auto run does not count: it makes none)
+    out["launches"] = CudaExecutor.launches if count_launches else None
+    out["graph_launches"] = eng.graph.launches
+    out["graph_replays"] = eng.graph.replays
+    check(out["first_step_launches"] == 0,
+          f"{out['first_step_launches']} eager launches in a graph step")
+    # the eager step on the same engine state
+    for leaves in eng.cache.values():
+        for leaf in leaves:
+            leaf.zero_()
+    eng.pos, eng._step = 0, eng._eager
+    before = CudaExecutor.launches
+    eager = _serve(eng, prompts, n_decode)
+    eager["launches"] = CudaExecutor.launches - before
+    out["eager"] = eager
+    label = f"{cfg.name} {mode}{' int8' if kv_quant else ''}"
+    check(torch.equal(out["first"], eager["first"]),
+          f"{label}: graph and eager first-step logits differ: max abs "
+          f"{(out['first'] - eager['first']).abs().max().item()}")
+    check(np.array_equal(out["tokens"], eager["tokens"]),
+          f"{label}: graph and eager tokens differ")
+    if profile_steps:
+        eng._step = eng.graph.run
+        out.update(_profile_replays(eng, profile_steps, out["ms_per_token"]))
+    out["plans"] = {k: {b: p.algo for b, p in bp.plans.items()}
+                    for k, bp in eng.decode_plans.items()}
     if keep_params:
         out["params"] = eng.params
     del eng
+    gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def _graph_gates(r, per_step, steps, label):
+    """The executor launches of an explicit graph-served run: the capture
+    recorded ``per_step``; the wrapper launched them for each warm-up
+    step and the capture and never while replaying; the eager run
+    launched ``per_step`` a step; the profiler saw ``per_step`` a
+    replay."""
+    from repro_torch.distributed.step import WARMUP_STEPS
+    check(r["graph_launches"] == per_step,
+          f"{label}: {r['graph_launches']} launches captured")
+    check(r["launches"] == (WARMUP_STEPS + 1) * per_step,
+          f"{label}: {r['launches']} wrapper launches over construction "
+          f"and {steps} replayed steps")
+    check(r["graph_replays"] == steps,
+          f"{label}: {r['graph_replays']} replays for {steps} steps")
+    check(r["eager"]["first_step_launches"] == per_step,
+          f"{label}: {r['eager']['first_step_launches']} launches in the "
+          f"eager first step")
+    check(r["eager"]["launches"] == per_step * steps,
+          f"{label}: {r['eager']['launches']} eager launches in {steps} "
+          f"steps")
+    if "profiled_executor_kernels" in r:
+        want = per_step * r["profiled_replays"]
+        check(r["profiled_executor_kernels"] == want,
+              f"{label}: profiler saw {r['profiled_executor_kernels']} "
+              f"executor kernels over {r['profiled_replays']} replays, "
+              f"want {want}")
+
+
+def _counted(r) -> tuple:
+    """(wrapper launches over the main path, executor kernels the
+    profiler counted, over how many replays) of an explicit run."""
+    return (r["launches"], r["profiled_executor_kernels"],
+            r["profiled_replays"])
+
+
+def _int8_vs_fp(q, fp) -> dict:
+    """The reference's int8 bar (tests/test_kv_quant.py): max abs error
+    over the fp logits' max abs, and argmax agreement."""
+    rel = ((q - fp).abs().max() / fp.abs().max()).item()
+    agree = float((q.argmax(-1) == fp.argmax(-1)).float().mean())
+    return dict(rel_err=rel, argmax_agreement=agree)
+
+
+def _run_record(r) -> dict:
+    keep = ("ms_per_token", "graph_launches", "launches", "graph_replays",
+            "profiled_executor_kernels", "profiled_replays",
+            "device_busy_ms", "device_busy_share")
+    out = {k: r[k] for k in keep if k in r}
+    out["eager_ms_per_token"] = r["eager"]["ms_per_token"]
+    out["eager_launches"] = r["eager"]["launches"]
     return out
 
 
@@ -582,34 +793,59 @@ def phase_main_path(device):
     init_s = time.perf_counter() - t
     prompts = np.random.RandomState(0).randint(
         0, cfg.vocab, (BATCH, PROMPT)).astype(np.int64)
-    auto = _run_engine(cfg, params, prompts, "auto", DECODE, False)
-    explicit = _run_engine(cfg, params, prompts, "explicit", DECODE, True)
     steps = PROMPT + DECODE
     per_step = 2 * cfg.n_layers + 2           # layers, embed, logits
-    check(explicit["first_step_launches"] == per_step,
-          f"{explicit['first_step_launches']} launches in the first step")
-    check(explicit["launches"] == per_step * steps,
-          f"{explicit['launches']} launches in {steps} steps")
-    for r in (auto, explicit):
+    runs = {}
+    for name, mode, quant in (("auto", "auto", False),
+                              ("explicit", "explicit", False),
+                              ("auto_int8", "auto", True),
+                              ("explicit_int8", "explicit", True)):
+        runs[name] = _run_engine(cfg, params, prompts, mode, DECODE,
+                                 mode == "explicit", kv_quant=quant,
+                                 profile_steps=MAIN_DECODE_STEPS)
+        if mode == "explicit":
+            _graph_gates(runs[name], per_step, steps, f"{ARCH} {name}")
+        else:
+            check(runs[name]["graph_launches"] == 0
+                  and runs[name]["profiled_executor_kernels"] == 0,
+                  f"{ARCH} {name}: executor launches in auto mode")
+    for r in runs.values():
         check(bool(torch.isfinite(r["first"]).all()
                    and torch.isfinite(r["last"]).all()), "non-finite logits")
         check(r["tokens"].shape == (BATCH, DECODE), "token shape")
+    auto, explicit = runs["auto"], runs["explicit"]
     diff = (explicit["first"] - auto["first"])
-    rel = (diff.norm() / auto["first"].norm()).item()
+    rel = _rel(explicit["first"], auto["first"])
     check(rel <= BF16_REL_TOL, f"first-step logits differ: rel {rel}")
+    rel_int8 = _rel(runs["explicit_int8"]["first"],
+                         runs["auto_int8"]["first"])
+    check(rel_int8 <= BF16_REL_TOL,
+          f"int8 first-step logits, explicit vs auto: rel {rel_int8}")
+    # int8 against the bf16 cache, 16 tokens into the cache
+    int8_vs_bf16 = {m: _int8_vs_fp(runs[f"{m}_int8"]["last"], runs[m]["last"])
+                    for m in ("auto", "explicit")}
+    for m, v in int8_vs_bf16.items():
+        check(v["rel_err"] < INT8_REL_TOL
+              and v["argmax_agreement"] >= INT8_ARGMAX_AGREEMENT,
+              f"int8 vs bf16 cache ({m}): {v}")
     agree = float((explicit["tokens"] == auto["tokens"]).mean())
     emit("main_path", arch=ARCH, n_layers=cfg.n_layers, d_model=cfg.d_model,
          vocab=cfg.vocab, dtype=cfg.dtype, tp=TP, batch=BATCH, prompt=PROMPT,
          decode=DECODE, init_params_s=round(init_s, 3),
          ms_per_token_auto=auto["ms_per_token"],
          ms_per_token_explicit=explicit["ms_per_token"],
+         ms_per_token_auto_eager=auto["eager"]["ms_per_token"],
+         ms_per_token_explicit_eager=explicit["eager"]["ms_per_token"],
+         runs={k: _run_record(r) for k, r in runs.items()},
          launches=explicit["launches"], launches_per_step=per_step,
          first_step_rel_err=rel, first_step_max_abs_err=diff.abs().max()
-         .item(), bf16_rel_tol=BF16_REL_TOL, token_agreement=agree,
+         .item(), int8_first_step_rel_err=rel_int8,
+         int8_vs_bf16=int8_vs_bf16, int8_rel_tol=INT8_REL_TOL,
+         bf16_rel_tol=BF16_REL_TOL, token_agreement=agree,
          plans=explicit["plans"])
     del params
     torch.cuda.empty_cache()
-    return explicit["launches"]
+    return _counted(explicit)
 
 
 def phase_f32_reduced_depth(device):
@@ -629,7 +865,7 @@ def phase_f32_reduced_depth(device):
     rel = ((explicit["last"] - auto["last"]).norm()
            / auto["last"].norm()).item()
     emit("f32_reduced_depth", n_layers=cfg.n_layers, tokens_equal=equal,
-         steps=16, last_prefill_rel_err=rel)
+         steps=16, last_prefill_rel_err=rel, graph=True)
     check(equal, "f32 explicit and auto greedy tokens differ")
     del params
     torch.cuda.empty_cache()
@@ -751,10 +987,12 @@ def _profile_prefill(device):
 def phase_profile(device):
     """Opt-in (``--phases 7``): where one decode step's time goes —
     ``torch.profiler`` over 4 steps of each mode at each main path's
-    shape (qwen3-1.7b, phase 4; phi3.5-moe at 8 layers, phase 9); device
-    busy share = summed kernel time over the steps' wall time, with and
-    without the profiler, and the kernels that take most of it. Then the
-    same for one prefill forward of each phase-10 model."""
+    shape (qwen3-1.7b, phase 4; phi3.5-moe at 8 layers, phase 9), served
+    as the engine serves them, by replaying its CUDA graph, and the same
+    steps eager beside them: device busy share = summed kernel time over
+    the steps' wall time, with and without the profiler, and the kernels
+    that take most of it. Then the same for one prefill forward of each
+    phase-10 model."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
@@ -763,6 +1001,38 @@ def phase_profile(device):
     tok = torch.zeros(BATCH, dtype=torch.long, device=device)
     steps = 4
     out = {}
+
+    def measure(eng):
+        for _ in range(PROMPT):                # warm, and fill the cache
+            eng._run_step(tok)
+            eng.pos += 1
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            eng._run_step(tok)
+            eng.pos += 1
+        torch.cuda.synchronize()
+        bare_ms = (time.perf_counter() - t) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(steps):
+                eng._run_step(tok)
+                eng.pos += 1
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3 / steps
+        rows = _device_rows(prof, steps)
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        return dict(
+            step_wall_ms=wall_ms, step_wall_ms_unprofiled=bare_ms,
+            device_busy_ms=busy_ms,
+            device_busy_share=busy_ms / wall_ms if rows else None,
+            device_busy_share_unprofiled=(busy_ms / bare_ms if rows
+                                          else None),
+            executor_kernels_per_step=_executor_kernels(prof) / steps,
+            top_kernels=[dict(name=k[:90], us_per_step=us, launches=c)
+                         for us, c, k in rows[:12]])
+
     for arch, cfg in ((ARCH, configs.get_config(ARCH)),
                       (MOE_ARCH, _moe_cfg(MOE_LAYERS))):
         params = tf.init_params(cfg, torch.Generator(device=device)
@@ -772,35 +1042,12 @@ def phase_profile(device):
             eng = Engine(cfg, params, ServeConfig(batch=BATCH,
                                                   max_kv=MAX_KV),
                          tp=TP, mode=mode)
-            for _ in range(PROMPT):            # warm, and fill the cache
-                eng._run_step(tok)
-                eng.pos += 1
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(steps):
-                eng._run_step(tok)
-                eng.pos += 1
-            torch.cuda.synchronize()
-            bare_ms = (time.perf_counter() - t) * 1e3 / steps
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t = time.perf_counter()
-                for _ in range(steps):
-                    eng._run_step(tok)
-                    eng.pos += 1
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t) * 1e3 / steps
-            rows = _device_rows(prof, steps)
-            busy_ms = sum(r[0] for r in rows) / 1e3
-            out[arch][mode] = dict(
-                n_layers=cfg.n_layers, step_wall_ms=wall_ms,
-                step_wall_ms_unprofiled=bare_ms, device_busy_ms=busy_ms,
-                device_busy_share=busy_ms / wall_ms if rows else None,
-                device_busy_share_unprofiled=(busy_ms / bare_ms if rows
-                                              else None),
-                top_kernels=[dict(name=k[:90], us_per_step=us, launches=c)
-                             for us, c, k in rows[:12]])
+            graph = measure(eng)
+            eng.pos, eng._step = 0, eng._eager
+            out[arch][mode] = dict(n_layers=cfg.n_layers, graph=graph,
+                                   eager=measure(eng))
             del eng
+            gc.collect()
             torch.cuda.empty_cache()
         del params
         torch.cuda.empty_cache()
@@ -1417,9 +1664,10 @@ def _moe_main_path(device):
     init_s = time.perf_counter() - t
     prompts = np.random.RandomState(2).randint(
         0, cfg.vocab, (BATCH, PROMPT)).astype(np.int64)
-    auto = _run_engine(cfg, params, prompts, "auto", DECODE, False)
+    auto = _run_engine(cfg, params, prompts, "auto", DECODE, False,
+                       profile_steps=MAIN_DECODE_STEPS)
     explicit = _run_engine(cfg, params, prompts, "explicit", DECODE, True,
-                           keep_params=True)
+                           keep_params=True, profile_steps=MAIN_DECODE_STEPS)
     first = _moe_first_step(cfg, params, explicit["params"], prompts, device)
     del params
     torch.cuda.empty_cache()
@@ -1427,10 +1675,10 @@ def _moe_main_path(device):
     # embedding + per layer (attention AllReduce, dispatch, combine) +
     # logits gather
     per_step = 3 * cfg.n_layers + 2
-    check(explicit["first_step_launches"] == per_step,
-          f"{explicit['first_step_launches']} launches in the first step")
-    check(explicit["launches"] == per_step * steps,
-          f"{explicit['launches']} launches in {steps} steps")
+    _graph_gates(explicit, per_step, steps, f"{MOE_ARCH} explicit")
+    check(auto["graph_launches"] == 0
+          and auto["profiled_executor_kernels"] == 0,
+          f"{MOE_ARCH} auto: executor launches in auto mode")
     for r in (auto, explicit):
         check(bool(torch.isfinite(r["first"]).all()
                    and torch.isfinite(r["last"]).all()), "non-finite logits")
@@ -1461,12 +1709,15 @@ def _moe_main_path(device):
         dtype=cfg.dtype, tp=TP, batch=BATCH, prompt=PROMPT, decode=DECODE,
         init_params_s=init_s, ms_per_token_auto=auto["ms_per_token"],
         ms_per_token_explicit=explicit["ms_per_token"],
+        ms_per_token_auto_eager=auto["eager"]["ms_per_token"],
+        ms_per_token_explicit_eager=explicit["eager"]["ms_per_token"],
+        runs={"auto": _run_record(auto), "explicit": _run_record(explicit)},
         launches=explicit["launches"], launches_per_step=per_step,
         first_step_rel_err=rel, first_step_max_abs_err=diff.abs().max()
         .item(), first_step=first, bf16_rel_tol=BF16_REL_TOL,
         token_agreement=float((explicit["tokens"] == auto["tokens"]).mean()),
         plans=explicit["plans"])
-    return record, explicit["params"], explicit["launches"]
+    return record, explicit["params"], _counted(explicit)
 
 
 def _moe_layer_through_kernel(device, gen, eparams):
@@ -1956,11 +2207,14 @@ def _fused_vs_stepwise(device):
                                               max_kv=2 * FUSED_TOKENS))
         stepwise = eng.prefill(prompts)
         torch.cuda.synchronize()
+        check(eng.graph is not None and eng.graph.replays == FUSED_TOKENS,
+              "token by token: not every step was a graph replay")
         rel = _rel(fused, stepwise)
         agree = bool(torch.equal(fused.argmax(-1), stepwise.argmax(-1)))
         out[dtype] = dict(n_layers=cfg.n_layers, rel_err=rel,
                           max_abs_err=(fused - stepwise.float()).abs().max()
-                          .item(), argmax_equal=agree, tol=tol)
+                          .item(), argmax_equal=agree, tol=tol,
+                          graph_replays=eng.graph.replays)
         check(rel <= tol, f"fused vs token by token, {dtype}: rel {rel}")
         if dtype == "float32":
             check(agree, "fused vs token by token, f32: argmax differs")
@@ -2647,7 +2901,11 @@ def main(argv=None) -> int:
         # AllReduces and embedding, dispatch and combine per layer, one
         # logits gather. The entry's times are the two paths' means
         # weighted by their launches (phases 4 and 9, each counted from
-        # 0); ``by_path`` keeps each path's own
+        # 0: the wrapper's launches over the engine's construction, the
+        # warm-up steps and the capture of its graph; the executor
+        # kernels that the profiler counted over later replays of that
+        # graph are ``launches_profiled`` over ``replays_profiled``);
+        # ``by_path`` keeps each path's own
         from repro_torch import configs
         n_layers = configs.get_config(ARCH).n_layers
         mixes = {ARCH: {"layer_allreduce": 2 * n_layers + 1,
@@ -2655,7 +2913,8 @@ def main(argv=None) -> int:
                  MOE_ARCH: {"layer_allreduce": MOE_LAYERS + 1,
                             "moe_alltoall": 2 * MOE_LAYERS,
                             "logits_allgather": 1}}
-        counted = {ARCH: launches, MOE_ARCH: moe[2] if moe else None}
+        counted = {ARCH: launches or (None, None, None),
+                   MOE_ARCH: moe[2] if moe else (None, None, None)}
         keys = ("ms", "plain_ms", "bound_ms", "library_ms")
         by_path = {}
         for arch, mix in mixes.items():
@@ -2664,7 +2923,9 @@ def main(argv=None) -> int:
                           key=lambda t: t["rows"]) for p in mix}
             total = sum(mix.values())
             by_path[arch] = dict(
-                launches=counted[arch], launch_mix=mix,
+                launches=counted[arch][0],
+                launches_profiled=counted[arch][1],
+                replays_profiled=counted[arch][2], launch_mix=mix,
                 blocks_per_rank={p: top[p]["blocks_per_rank"] for p in mix},
                 threads={p: top[p]["threads"] for p in mix},
                 **{k: sum(top[p][k] * c for p, c in mix.items()) / total
@@ -2674,8 +2935,12 @@ def main(argv=None) -> int:
         kernels.append(dict(
             name="dsl_executor", route="cuda", source=KERNEL_SOURCE,
             replaces=REPLACES, max_abs_err=max_err,
-            launches=(sum(weight.values()) if any(counted.values())
-                      else None),
+            launches=(sum(weight.values())
+                      if any(c[0] for c in counted.values()) else None),
+            launches_profiled=(sum(c[1] for c in counted.values() if c[1])
+                               or None),
+            replays_profiled=(sum(c[2] for c in counted.values() if c[2])
+                              or None),
             **{k: sum(by_path[a][k] * w for a, w in weight.items())
                / sum(weight.values()) for k in keys},
             bound_by="bytes",

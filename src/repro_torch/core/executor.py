@@ -58,7 +58,7 @@ from repro_torch.core.dsl import IndexExpr, Instr, Op, Program, full_fanout
 from repro_torch.mesh import group_ranks
 
 __all__ = ["TorchExecutor", "CudaExecutor", "EncodedProgram", "encode",
-           "execute", "OPCODES", "FIELDS"]
+           "execute", "graph_nodes", "OPCODES", "FIELDS"]
 
 
 # ---------------------------------------------------------------------------
@@ -590,31 +590,51 @@ def encode(program: Program, n: int) -> EncodedProgram:
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
+def _capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph."""
+    return (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing())
+
+
 class CudaExecutor:
     """Run a Program through the hand-written Hopper kernel
     (``csrc/executor.cu``); replaces ``PallasExecutor``.
 
-    The instruction table, the flag slots and every scratch buffer are
-    device allocations made once when the plan is built (:meth:`bind`);
-    a call allocates only its output and launches once. Flags are
-    written with a per-executor epoch that grows by one per launch, so
-    replays need no memset between them.
+    The instruction table, the flag slots, the epoch words and every
+    scratch buffer are device allocations made once when the plan is
+    built (:meth:`bind`); a call allocates only its output and launches
+    once. The flags' epoch lives on the card, one word per block that
+    the kernel bumps at each launch, so the host passes nothing that
+    changes between launches: a launch captured in a CUDA graph replays
+    with a fresh epoch, and replays need no memset between them.
+
+    Each shape keeps its binding as long as the executor lives, so a call
+    at another shape leaves a captured graph's device pointers valid; an
+    explicit re-bind of a shape that was launched into a capture raises.
     """
 
-    #: kernel launches made through any CudaExecutor (the main path's
-    #: proof that it ran on the kernel)
+    #: kernel launches made through any CudaExecutor, eager or into a
+    #: CUDA-graph capture (the main path's proof that it ran on the
+    #: kernel)
     launches: int = 0
 
     def __init__(self, program: Program):
         self.program = _frozen(program)
         self.encoded: Optional[EncodedProgram] = None
-        self._bound: Optional[tuple] = None
-        self._epoch = 0
+        self._bound: Optional[tuple] = None       # the last one launched
+        self._bindings: dict[tuple, tuple] = {}
+        self._captured: set[tuple] = set()
 
     @property
     def blocks(self) -> Optional[int]:
         """Blocks a rank of the bound launch (None before :meth:`bind`)."""
         return None if self._bound is None else self._bound[10]
+
+    @property
+    def epochs(self) -> Optional[torch.Tensor]:
+        """The bound launch's epoch words, one per block (None before
+        :meth:`bind`)."""
+        return None if self._bound is None else self._bound[11]
 
     def prepare(self, n: int) -> "CudaExecutor":
         self.encoded = encode(self.program, n)
@@ -624,18 +644,32 @@ class CudaExecutor:
              groups: int = 1) -> "CudaExecutor":
         """Allocate the device state for ``(groups * n, n_in*rows, cols)``
         payloads of ``dtype`` on ``device``: instruction table, flags (one
-        set per group, one word per tile), scratch; and fix the launch's
-        :attr:`blocks` a rank."""
-        enc = self.encoded
-        if enc is None:
-            raise RuntimeError("CudaExecutor.bind before prepare(n)")
+        set per group, one word per tile), epoch words (one per block,
+        zero), scratch; and fix the launch's :attr:`blocks` a rank."""
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"CudaExecutor binds CUDA devices only, got "
                              f"{device}; the plain version is TorchExecutor")
+        return self._bind(rows, cols, dtype, device, groups)
+
+    def _bind(self, rows, cols, dtype, device, groups) -> "CudaExecutor":
+        enc = self.encoded
+        if enc is None:
+            raise RuntimeError("CudaExecutor.bind before prepare(n)")
         if dtype not in _DTYPE_CODES:
             raise ValueError(f"CudaExecutor takes {list(_DTYPE_CODES)}, "
                              f"got {dtype}")
+        if _capturing():
+            raise RuntimeError(
+                f"CudaExecutor for {self.program.name!r} binds inside a CUDA "
+                f"graph capture (host copies and an occupancy query): run "
+                f"the plan once at this shape before capturing it")
+        key = (rows, cols, dtype, device, groups)
+        if key in self._captured:
+            raise RuntimeError(
+                f"CudaExecutor for {self.program.name!r} re-binds a shape "
+                f"that a CUDA graph captured: the graph replays its flags, "
+                f"epoch words and scratch")
         p = self.program
         n = enc.n
         if groups < 1 or groups * n > MAX_RANKS:
@@ -653,11 +687,13 @@ class CudaExecutor:
         group_flags = max(1, n * (enc.n_flags + enc.n_barriers) * blocks)
         flags = torch.zeros(groups * group_flags, dtype=torch.int32,
                             device=device)
+        epochs = torch.zeros(groups * n * blocks, dtype=torch.int32,
+                             device=device)
         ops = torch.from_numpy(enc.ops).to(device)
         opnds = torch.from_numpy(enc.operands).to(device)
-        self._bound = (rows, cols, dtype, device, groups, scratch, flags,
-                       group_flags, ops, opnds, blocks)
-        self._epoch = 0
+        self._bound = self._bindings[key] = (
+            rows, cols, dtype, device, groups, scratch, flags, group_flags,
+            ops, opnds, blocks, epochs)
         return self
 
     def __call__(self, x: torch.Tensor, *, groups: int = 1,
@@ -666,6 +702,10 @@ class CudaExecutor:
             raise ValueError(
                 f"CudaExecutor runs CUDA tensors only, got a tensor on "
                 f"{x.device}; use backend='torch' for the plain version")
+        return self._launch(x, groups, stride)
+
+    def _launch(self, x: torch.Tensor, groups: int = 1,
+                stride: int = 1) -> torch.Tensor:
         enc = self.encoded
         if enc is None:
             raise RuntimeError("CudaExecutor called before prepare(n)")
@@ -683,11 +723,15 @@ class CudaExecutor:
             raise ValueError(f"{total} rows do not divide into the {n_in} "
                              f"input chunks of {p.name!r}")
         rows = total // n_in
-        if self._bound is None or self._bound[:5] != (rows, cols, x.dtype,
-                                                      x.device, groups):
-            self.bind(rows, cols, x.dtype, x.device, groups=groups)
+        key = (rows, cols, x.dtype, x.device, groups)
+        if key in self._bindings:
+            self._bound = self._bindings[key]
+        else:
+            self._bind(rows, cols, x.dtype, x.device, groups)
+        if _capturing():
+            self._captured.add(key)
         (_, _, dtype, device, _, scratch, flags, group_flags, ops,
-         opnds, blocks) = self._bound
+         opnds, blocks, epochs) = self._bound
         x = x.contiguous()
         if enc.writes_input:
             x = x.clone()
@@ -702,13 +746,12 @@ class CudaExecutor:
             base = t.data_ptr()
             for r in range(groups * n):
                 table[b * MAX_RANKS + r] = base + r * step
-        self._epoch = self._epoch % 0xFFFFFFFF + 1
         from repro_torch.kernels import build
         lib = build.executor_library()
         rc = lib.dsl_executor_launch(
             table, _DTYPE_CODES[dtype], n, groups, stride, ops.data_ptr(),
             ops.shape[1], opnds.data_ptr(), opnds.shape[1], flags.data_ptr(),
-            enc.n_flags, group_flags, self._epoch, chunk_elems, blocks,
+            enc.n_flags, group_flags, epochs.data_ptr(), chunk_elems, blocks,
             THREADS, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
             raise RuntimeError(
@@ -717,6 +760,21 @@ class CudaExecutor:
                 f"{lib.dsl_executor_error_string(rc).decode()}")
         CudaExecutor.launches += 1
         return out
+
+
+def graph_nodes(graph: "torch.cuda.CUDAGraph") -> tuple[int, int]:
+    """(executor kernel nodes, of them cooperative) of a captured graph
+    kept with ``keep_graph=True``: what the capture recorded of the
+    executor's launches, read back from the graph itself."""
+    from repro_torch.kernels import build
+    lib = build.executor_library()
+    nodes, coop = ctypes.c_int(), ctypes.c_int()
+    rc = lib.dsl_executor_graph_nodes(graph.raw_cuda_graph(),
+                                      ctypes.byref(nodes), ctypes.byref(coop))
+    if rc != 0:
+        raise RuntimeError(f"reading the graph's nodes failed: "
+                           f"{lib.dsl_executor_error_string(rc).decode()}")
+    return nodes.value, coop.value
 
 
 def execute(program: Program, x: torch.Tensor, *,

@@ -20,9 +20,16 @@
 //   table with peer pointers.
 // * Each put owns one flag slot at its receiver, one word per tile
 //   ([receiver][slot][tile]), written by the sender's block b with the
-//   launch's epoch (a counter the wrapper bumps per launch). Slots never
-//   alias, so the reference's rotation over 4 DMA semaphore pairs and its
-//   wrap barrier are gone, and replays need no memset.
+//   launch's epoch. Slots never alias, so the reference's rotation over 4
+//   DMA semaphore pairs and its wrap barrier are gone, and replays need no
+//   memset.
+// * The epoch lives in device memory, one word per block of the launch
+//   (zeroed when the wrapper binds the flags): thread 0 of each block bumps
+//   its own word (never to 0) and shares it through shared memory. Every
+//   block runs once per launch, so the words stay equal, and stream order
+//   carries them to the next launch, eager or a CUDA-graph replay. Nothing
+//   of the launch comes from the host but the plan, so a captured launch
+//   replays with a fresh epoch each time.
 // * No entry or exit barrier: the reference needs start_barrier /
 //   device_barrier (primitives.py:224-303) because a peer device may not
 //   have entered the kernel yet or may still read; here one launch holds
@@ -36,7 +43,9 @@
 //   vector step issues all its operand loads before the adds.
 // * The wrapper picks nb (about one 16-byte vector a thread of a chunk, at
 //   most what the occupancy query keeps resident over all ranks;
-//   core/executor.py:blocks_per_rank) for blocks of 256 threads.
+//   core/executor.py:blocks_per_rank) for blocks of 256 threads. The launch
+//   is cudaLaunchKernelEx with the cooperative attribute, which a stream
+//   capture records as a cooperative kernel node.
 //
 // * A group view: one launch can run the same plan over `groups` disjoint
 //   groups of n ranks, rank block g * n + m playing member m of group g,
@@ -53,6 +62,8 @@
 #include "primitives.cuh"
 
 #include <string.h>
+
+#include <vector>
 
 namespace msccl {
 
@@ -78,10 +89,19 @@ template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 dsl_executor_kernel(BufTable bufs, const int* __restrict__ ops, int n_ops,
                     const int* __restrict__ opnds, int opnds_per_rank,
-                    unsigned* flags, int n_flags, int group_flags, unsigned epoch,
-                    long long chunk_elems, int n, int stride, int nb) {
+                    unsigned* flags, int n_flags, int group_flags,
+                    unsigned* __restrict__ epochs, long long chunk_elems, int n,
+                    int stride, int nb) {
   using B = typename Elem<T>::B;
   __shared__ const B* s_src[kMaxOperands];
+  __shared__ unsigned s_epoch;
+  if (threadIdx.x == 0) {  // this launch's epoch: the block's word, bumped
+    const unsigned e = epochs[blockIdx.x] % 0xFFFFFFFFu + 1u;
+    epochs[blockIdx.x] = e;
+    s_epoch = e;
+  }
+  __syncthreads();
+  const unsigned epoch = s_epoch;
   const int rank_block = blockIdx.x / nb, b = blockIdx.x % nb;
   const int g = rank_block / n, me = rank_block % n;  // group, member
   const int* row = ops + static_cast<long long>(me) * n_ops * kFields;
@@ -163,23 +183,60 @@ int dsl_executor_max_blocks(int dtype, int threads) {
 
 // Launch one replay over `groups` groups of n ranks (the group view above),
 // nb blocks a rank. `table` is a host array of kMaxBufs * kMaxGridRanks base
-// pointers ([buffer][rank]); ops/opnds/flags are device pointers, flags
+// pointers ([buffer][rank]); ops/opnds/flags/epochs are device pointers, flags
 // `group_flags` words a group ([member][slot][tile] put flags, then
-// [barrier][member][tile]). Returns the launch's cudaError_t (0 on success).
+// [barrier][member][tile]), epochs one word per block (n * groups * nb).
+// Returns the launch's cudaError_t (0 on success).
 int dsl_executor_launch(const void* table, int dtype, int n, int groups, int stride,
                         const int* ops, int n_ops, const int* opnds, int opnds_per_rank,
-                        unsigned* flags, int n_flags, int group_flags, unsigned epoch,
+                        unsigned* flags, int n_flags, int group_flags, unsigned* epochs,
                         long long chunk_elems, int nb, int threads, void* stream) {
   using namespace msccl;
   if (n < 1 || groups < 1 || stride < 1 || groups % stride || n * groups > kMaxGridRanks ||
-      nb < 1 || threads > kMaxThreads)
+      nb < 1 || threads > kMaxThreads || epochs == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   BufTable t;
   memcpy(&t, table, sizeof(t));
   void* args[] = {&t, &ops, &n_ops, &opnds, &opnds_per_rank, &flags,
-                  &n_flags, &group_flags, &epoch, &chunk_elems, &n, &stride, &nb};
+                  &n_flags, &group_flags, &epochs, &chunk_elems, &n, &stride, &nb};
   return launch_cooperative(MSCCL_BY_DTYPE(dtype, dsl_executor_kernel), n * groups * nb,
                             threads, args, stream);
+}
+
+// Walk a captured graph (cudaGraph_t) and count its kernel nodes of the
+// executor kernel (any element type), and of those the ones whose launch
+// carries the cooperative attribute. Nodes of other kernels (PyTorch's,
+// cuBLAS's) are skipped, an error of their query included. Returns 0 or
+// the cudaError_t of listing the nodes.
+int dsl_executor_graph_nodes(void* graph, int* nodes, int* cooperative) {
+  using namespace msccl;
+  *nodes = *cooperative = 0;
+  size_t count = 0;
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &count);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  std::vector<cudaGraphNode_t> all(count);
+  if (count && (err = cudaGraphGetNodes(g, all.data(), &count)) != cudaSuccess)
+    return static_cast<int>(err);
+  for (cudaGraphNode_t node : all) {
+    cudaGraphNodeType type;
+    cudaKernelNodeParams p;
+    if (cudaGraphNodeGetType(node, &type) != cudaSuccess || type != cudaGraphNodeTypeKernel ||
+        cudaGraphKernelNodeGetParams(node, &p) != cudaSuccess) {
+      cudaGetLastError();
+      continue;
+    }
+    bool ours = false;
+    for (int code = 0; code < 4; ++code) ours |= p.func == MSCCL_BY_DTYPE(code, dsl_executor_kernel);
+    if (!ours) continue;
+    ++*nodes;
+    cudaLaunchAttributeValue v;
+    if (cudaGraphKernelNodeGetAttribute(node, cudaLaunchAttributeCooperative, &v) == cudaSuccess &&
+        v.cooperative)
+      ++*cooperative;
+    cudaGetLastError();
+  }
+  return 0;
 }
 
 const char* dsl_executor_error_string(int code) {

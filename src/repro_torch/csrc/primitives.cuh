@@ -330,13 +330,25 @@ __device__ __forceinline__ void tile(long long count, int align, int b, int nb,
 }
 
 // Cooperative launch: it fails instead of deadlocking when the blocks,
-// which spin on each other's flags, cannot all be resident at once.
-// Returns the launch's cudaError_t (0 on success).
+// which spin on each other's flags, cannot all be resident at once. It goes
+// through cudaLaunchKernelEx with the cooperative attribute, which a stream
+// capture records as a kernel node that keeps the attribute, so a CUDA-graph
+// replay launches it cooperatively too. Returns the launch's cudaError_t (0
+// on success).
 inline int launch_cooperative(const void* fn, int blocks, int threads, void** args,
                               void* stream) {
   if (fn == nullptr || threads < 32 || threads > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), args, 0,
-                                                static_cast<cudaStream_t>(stream));
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelExC(&cfg, fn, args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

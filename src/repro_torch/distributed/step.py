@@ -9,7 +9,11 @@ token hot path) — port of ``repro.distributed.step``'s serving half.
 * :class:`TPDecodeComms` replays them inside ``decode_step(comms=)``;
 * :func:`make_serve_step` builds the one-token step in ``auto`` mode
   (the unsharded model on one device) or ``explicit`` mode (rank-stacked
-  shards, every collective a plan replay);
+  shards, every collective a plan replay), on a bf16/f32 or an int8 KV
+  cache;
+* :func:`capture_serve_step` captures that step once in a CUDA graph and
+  replays it every token — the port's counterpart of the reference's
+  ``jax.jit`` step with its cache donated;
 * :func:`make_prefill_step` builds the full-sequence prefill forward
   (what a prompt costs before its first token) in auto mode: one
   unsharded model, each layer's attention core one flash-attention
@@ -29,7 +33,8 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["slot_buckets", "compile_decode_plans", "TPDecodeComms",
-           "make_serve_step", "make_prefill_step", "StepLayout"]
+           "make_serve_step", "capture_serve_step", "CapturedStep",
+           "make_prefill_step", "StepLayout"]
 
 
 def slot_buckets(batch_local: int) -> tuple[int, ...]:
@@ -157,7 +162,8 @@ def _on(params, device):
 
 
 def make_serve_step(cfg: ModelConfig, axis: RankAxis, *, batch: int,
-                    max_kv: int, mode: str = "auto", comm=None, plans=None):
+                    max_kv: int, mode: str = "auto", comm=None, plans=None,
+                    kv_quant: bool = False):
     """One-token decode step ``step(params, cache, tokens, pos) ->
     (logits, cache)`` and its :class:`StepLayout`.
 
@@ -168,7 +174,12 @@ def make_serve_step(cfg: ModelConfig, axis: RankAxis, *, batch: int,
       all_to_all) replay the plans of ``plans`` (compiled here on ``comm``
       — by default a new :class:`~repro_torch.core.comm.Communicator`
       with the device's backend — when omitted).
+
+    ``kv_quant``: the layout's cache is the int8 KV cache with its
+    per-token scales; on the explicit path cache and scales are
+    replicated over the ranks, so the int8 cache adds no collective.
     """
+    dtype = torch.int8 if kv_quant else None
     if mode == "auto":
         def step(params, cache, tokens, pos):
             return tf.decode_step(params, cfg, cache, tokens, pos)
@@ -176,7 +187,7 @@ def make_serve_step(cfg: ModelConfig, axis: RankAxis, *, batch: int,
         return step, StepLayout(
             params=lambda p: _on(p, axis.device),
             cache=lambda: tf.init_cache(cfg, batch, max_kv,
-                                        device=axis.device))
+                                        device=axis.device, dtype=dtype))
     if mode != "explicit":
         raise ValueError(f"unknown serve mode {mode!r}")
     ok, why = shd.explicit_decode_supported(cfg, axis.n)
@@ -196,7 +207,86 @@ def make_serve_step(cfg: ModelConfig, axis: RankAxis, *, batch: int,
     return step, StepLayout(
         params=lambda p: shd.explicit_decode_params(p, cfg, axis),
         cache=lambda: tf.init_cache(cfg, batch, max_kv, device=axis.device,
-                                    ranks=axis.n))
+                                    dtype=dtype, ranks=axis.n))
+
+
+#: warm-up steps run before the capture (binds, tables, library handles)
+WARMUP_STEPS = 2
+
+
+class CapturedStep:
+    """The one-token step captured once in a CUDA graph
+    (:func:`capture_serve_step`); ``run(tokens, pos)`` replays it."""
+
+    def __init__(self, graph, tokens, pos, logits, launches: int):
+        self.graph = graph
+        self.tokens = tokens              # static (b,) token buffer
+        self.pos = pos                    # static 0-d position buffer
+        self.logits = logits              # static (b, vocab) output
+        #: executor launches made into the capture: every replay runs
+        #: exactly these (the graph's executor nodes, each cooperative)
+        self.launches = launches
+        self.replays = 0
+
+    def run(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
+        """Copy ``tokens`` in, set the position on the card, replay, and
+        return a copy of the logits (the static output is overwritten by
+        the next replay)."""
+        self.tokens.copy_(tokens)
+        self.pos.fill_(pos)
+        self.graph.replay()
+        self.replays += 1
+        return self.logits.clone()
+
+
+def capture_serve_step(step, params, cache, *, batch: int,
+                       device: DeviceLike) -> CapturedStep:
+    """Capture ``step(params, cache, tokens, pos)`` (from
+    :func:`make_serve_step`) once in a CUDA graph over static ``tokens``
+    ``(batch,)`` and 0-d ``pos`` buffers.
+
+    The step first runs :data:`WARMUP_STEPS` times on a side stream,
+    which binds every plan's :class:`~repro_torch.core.executor.
+    CudaExecutor`, uploads the RoPE tables and creates the library
+    handles, none of which a capture may do; the cache (and its int8
+    scales) is then zeroed, and the step captured on the same stream.
+    The graph reads ``params`` and writes ``cache`` in place, so both
+    must stay where they are while it lives. A step that reads a tensor
+    on the host, or draws a host epoch, fails the capture: this raises,
+    with no eager fallback. So does a graph whose executor kernel nodes
+    are not the launches made into it, each with the cooperative
+    attribute (its blocks spin on each other)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"capture_serve_step captures CUDA graphs; got "
+                         f"device {device} (run the step eagerly there)")
+    from repro_torch.core.executor import CudaExecutor, graph_nodes
+    tokens = torch.zeros(batch, dtype=torch.long, device=device)
+    pos = torch.zeros((), dtype=torch.long, device=device)
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.inference_mode(), torch.cuda.stream(stream):
+        for _ in range(WARMUP_STEPS):
+            step(params, cache, tokens, pos)
+        for leaves in cache.values():
+            for leaf in leaves:
+                leaf.zero_()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    before = CudaExecutor.launches
+    with torch.inference_mode(), torch.cuda.graph(graph, stream=stream):
+        logits, _ = step(params, cache, tokens, pos)
+    captured = CudaExecutor.launches - before
+    if captured:
+        nodes, cooperative = graph_nodes(graph)
+        if not nodes == cooperative == captured:
+            raise RuntimeError(
+                f"the captured step holds {nodes} executor kernel nodes, "
+                f"{cooperative} of them cooperative, for {captured} "
+                f"launches made into the capture")
+    graph.instantiate()
+    return CapturedStep(graph, tokens, pos, logits, captured)
 
 
 def make_prefill_step(cfg: ModelConfig, *, device: DeviceLike = None):

@@ -118,7 +118,7 @@ def executor_library() -> ctypes.CDLL:
         c.c_void_p, c.c_int,   # operand table (device), operands per rank
         c.c_void_p, c.c_int,   # flags (device), put flag slots per rank
         c.c_int,               # flag words a group
-        c.c_uint,              # epoch
+        c.c_void_p,            # epoch words (device), one a block
         c.c_longlong,          # elements per chunk
         c.c_int,               # blocks per rank
         c.c_int,               # threads per block
@@ -128,6 +128,9 @@ def executor_library() -> ctypes.CDLL:
     lib.dsl_executor_max_blocks.argtypes = [c.c_int, c.c_int]
     lib.dsl_executor_error_string.restype = c.c_char_p
     lib.dsl_executor_error_string.argtypes = [c.c_int]
+    lib.dsl_executor_graph_nodes.restype = c.c_int
+    lib.dsl_executor_graph_nodes.argtypes = [
+        c.c_void_p, c.POINTER(c.c_int), c.POINTER(c.c_int)]
     return lib
 
 

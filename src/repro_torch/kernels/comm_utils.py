@@ -91,16 +91,28 @@ def blocks_per_rank(nbytes: int, n: int,
 @dataclasses.dataclass
 class Workspace:
     """A kernel's device scratch for one shape: slots, LL packets and
-    flags, allocated once; ``epoch`` tags this launch's flags."""
+    flags, allocated once; ``epoch`` tags this launch's flags. ``kernel``
+    names its kernel (set by :func:`workspace`)."""
 
     blocks: int
     tensors: Tuple[torch.Tensor, ...]
     epoch: int = 0
+    kernel: str = ""
 
     def next_epoch(self) -> int:
         """The next launch's flag value: it grows by one per launch, never
         0 (the flags' initial value), so no flag of an earlier launch
-        matches it and nothing is reset between launches."""
+        matches it and nothing is reset between launches.
+
+        The epoch lives on the host, so a CUDA graph would replay the one
+        it captured, and a wait would pass on the flag its last replay
+        left: drawing one inside a capture raises."""
+        if torch.cuda.is_initialized() and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{self.kernel or 'a collective kernel'} draws its flag "
+                f"epoch on the host: a CUDA graph cannot capture its launch "
+                f"(every replay would reuse one epoch)")
         self.epoch = self.epoch % EPOCH_MAX + 1
         return self.epoch
 
@@ -118,6 +130,7 @@ def workspace(kernel: str, x: torch.Tensor,
     ws = _WORKSPACES.get(key)
     if ws is None and make is not None:
         ws = _WORKSPACES[key] = make()
+        ws.kernel = kernel
     return ws
 
 

@@ -29,8 +29,9 @@ from repro_torch.kernels import comm_utils
 from repro_torch.kernels.flash_attention import flash_attention
 
 __all__ = ["rms_norm", "rope", "apply_rope", "attention", "decode_attention",
-           "mlp_swiglu", "top_k", "moe_layer", "init_linear", "init_attn",
-           "init_mlp", "init_moe", "padded_heads"]
+           "device_position", "mlp_swiglu", "top_k", "moe_layer",
+           "init_linear", "init_attn", "init_mlp", "init_moe",
+           "padded_heads"]
 
 Params = dict
 _MASKED = torch.finfo(torch.float32).min
@@ -82,10 +83,26 @@ def _rope_table_size(max_pos: int) -> int:
 
 def rope(pos, head_dim: int, theta: float, device,
          max_pos: Optional[int] = None):
-    """Position(s) -> cos/sin from the host table, which grows to cover
-    the positions asked for: an int ``pos`` gives ``(head_dim/2,)``, a
-    1-D tensor of positions ``(s,)`` gives ``(s, head_dim/2)``. A
-    position past ``max_pos`` raises instead of wrapping."""
+    """Position(s) -> cos/sin rows of the host table: an int ``pos`` or
+    a 0-d tensor gives ``(head_dim/2,)``, a 1-D tensor of positions
+    ``(s,)`` gives ``(s, head_dim/2)``.
+
+    Int and 1-D positions are read on the host: the table grows to cover
+    them, and a negative one or one past ``max_pos`` raises instead of
+    wrapping. A 0-d tensor is read on the device only, never on the host
+    (the decode step captured in a CUDA graph keeps its position on the
+    card): the table is sized from ``max_pos``, which it then needs, and
+    the caller, which knows the position on the host, keeps it in
+    ``[0, max_pos)``."""
+    if isinstance(pos, torch.Tensor) and pos.dim() == 0:
+        if max_pos is None:
+            raise ValueError("rope(): a device position needs max_pos to "
+                             "size the table")
+        cos_t, sin_t = _rope_device_tables(
+            head_dim, float(theta), _rope_table_size(int(max_pos)),
+            torch.device(device))
+        idx = pos.to(cos_t.device).reshape(1)
+        return cos_t.index_select(0, idx)[0], sin_t.index_select(0, idx)[0]
     if isinstance(pos, torch.Tensor):
         lo, hi = ((int(pos.min()), int(pos.max())) if pos.numel()
                   else (0, 0))
@@ -235,14 +252,59 @@ def _chunked_attn(q, k, v, cfg, *, window: Optional[int], chunk: int):
     return out.to(q.dtype)
 
 
-def decode_attention(p: Params, x, cache_k, cache_v, pos: int, cfg, *,
-                     window: Optional[int], head_offset=None):
-    """One-token decode with a KV cache (fp caches; the batch shares one
-    position in this slice).
+def _quantize(v):
+    """int8 KV quantization of one token, the reference's: a per-(…,
+    head) scale ``max|v|/127 + 1e-8`` over head_dim and ``round``
+    (half to even) clipped to +-127. v: (…, hd) -> (int8 (…, hd), f32
+    scale (…, 1))."""
+    vf = v.float()
+    sc = vf.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-8
+    return torch.clamp(torch.round(vf / sc), -127, 127).to(torch.int8), sc
+
+
+def device_position(pos: int, limit: int, device) -> torch.Tensor:
+    """An int decode position, checked on the host to lie in ``[0,
+    limit)``, as the 0-d tensor that the decode step reads on the
+    device."""
+    pos = int(pos)
+    if not 0 <= pos < limit:
+        raise ValueError(f"decode position {pos} outside [0, {limit}): "
+                         f"max_seq and each global layer's cache length "
+                         f"bound it")
+    return torch.tensor(pos, dtype=torch.long, device=device)
+
+
+def _bf16_dot(eq, a, cache):
+    """The reference's int8-cache products: bf16 operands, f32
+    accumulation (``preferred_element_type=f32``). Products of bf16
+    values are exact in f32, so ``a`` rounded to bf16 times the int8
+    ``cache`` in f32 is that dot (an int8 value is exact in bf16 and in
+    f32, so the cache goes to f32 in one pass)."""
+    return torch.einsum(eq, a.to(torch.bfloat16).float(), cache.float())
+
+
+def decode_attention(p: Params, x, cache_k, cache_v, pos, cfg, *,
+                     window: Optional[int], head_offset=None,
+                     k_scale=None, v_scale=None):
+    """One-token decode with a KV cache; the batch shares one position.
 
     x: (…, b, 1, d); cache_k/v: (…, b, kv_heads, max_kv, hd), updated IN
     PLACE with the new token (the port writes the cache buffer instead of
     returning a new one). Returns the attention output (…, b, 1, d).
+
+    ``pos``: an int, checked on the host and made a 0-d tensor
+    (:func:`device_position`), or a 0-d integer tensor, read on the device
+    only (the decode step captured in a CUDA graph), which the caller
+    keeps below ``max_kv`` on global layers and below ``cfg.max_seq``.
+    The RoPE row, the cache slot (``pos % max_kv`` on windowed layers) and
+    the validity mask all come from the tensor.
+
+    int8 cache (``cache_k.dtype == torch.int8``): the new token is written
+    as ``round(v / s)`` with a per-(batch, head, token) scale ``s`` kept
+    in ``k_scale``/``v_scale`` (…, b, kv_heads, max_kv, 1), also updated
+    in place; the k-scale folds in after the q·k dot and the v-scale into
+    the probabilities before the value dot, both dots on bf16 operands
+    with f32 accumulation — the reference's order.
 
     ``head_offset`` (explicit TP): a (tp,) tensor — rank ``r``'s ``p``
     holds the contiguous query/output heads starting at global head
@@ -253,32 +315,52 @@ def decode_attention(p: Params, x, cache_k, cache_v, pos: int, cfg, *,
     hd = cfg.hd
     nh, nkv = padded_heads(cfg)
     max_kv = cache_k.shape[-2]
+    quant = cache_k.dtype == torch.int8
+    if not isinstance(pos, torch.Tensor):
+        pos = device_position(pos, cfg.max_seq if window is not None
+                              else min(cfg.max_seq, max_kv), x.device)
     q, k_new, v_new = _qkv_proj(p, x, cfg)
     cos, sin = rope(pos, hd, cfg.rope_theta, x.device, max_pos=cfg.max_seq)
     q = apply_rope(q, cos, sin)
     k_new = apply_rope(k_new, cos, sin)
 
-    # ring buffer for windowed layers, linear for global ones
-    slot = pos % max_kv if window is not None else pos
-    cache_k[..., slot, :] = k_new[..., 0, :]
-    cache_v[..., slot, :] = v_new[..., 0, :]
+    # ring buffer for windowed layers, linear for global ones; the write
+    # indexes with the device slot (no host read)
+    slot = (pos % max_kv if window is not None else pos).reshape(1)
+    for cache, scales, val in ((cache_k, k_scale, k_new),
+                               (cache_v, v_scale, v_new)):
+        if quant:
+            val, sc = _quantize(val)
+            scales.index_copy_(scales.dim() - 2, slot, sc.to(scales.dtype))
+        cache.index_copy_(cache.dim() - 2, slot, val)
     k_pos = torch.arange(max_kv, device=x.device)
     if window is not None:
-        valid = ((slot - k_pos) % max_kv) < min(pos + 1, max_kv)
+        valid = ((slot - k_pos) % max_kv) < torch.clamp(pos + 1, max=max_kv)
     else:
         valid = k_pos <= pos
 
     g = nh // nkv
     if head_offset is not None:
         return _decode_attn_tp_shard(p, q, cache_k, cache_v, valid, cfg,
-                                     head_offset=head_offset, g=g)
+                                     head_offset=head_offset, g=g,
+                                     k_scale=k_scale, v_scale=v_scale)
     lead = q.shape[:-4]
     b = q.shape[-4]
     q = q.reshape(lead + (b, nkv, g, 1, hd))
-    logits = torch.einsum("...bngsh,...bnth->...bngst", q, cache_k).float()
+    eq_k = "...bngsh,...bnth->...bngst"
+    eq_v = "...bngst,...bnth->...bngsh"
+    if quant:
+        # (…, b, nkv, kv, 1) -> (…, b, nkv, 1, 1, kv) against the logits
+        ks = k_scale[..., 0].float()[..., None, None, :]
+        vs = v_scale[..., 0].float()[..., None, None, :]
+        logits = _bf16_dot(eq_k, q, cache_k) * ks
+    else:
+        logits = torch.einsum(eq_k, q, cache_k).float()
     logits = torch.where(valid, logits * hd ** -0.5, _MASKED)
-    probs = _softmax(logits).to(x.dtype)
-    out = torch.einsum("...bngst,...bnth->...bngsh", probs, cache_v)
+    if quant:
+        out = _bf16_dot(eq_v, _softmax(logits) * vs, cache_v).to(x.dtype)
+    else:
+        out = torch.einsum(eq_v, _softmax(logits).to(x.dtype), cache_v)
     out = out.reshape(lead + (b, nh, 1, hd))
     if nh > cfg.n_heads:
         head_mask = (torch.arange(nh, device=x.device) < cfg.n_heads)
@@ -287,22 +369,32 @@ def decode_attention(p: Params, x, cache_k, cache_v, pos: int, cfg, *,
 
 
 def _decode_attn_tp_shard(p: Params, q, cache_k, cache_v, valid, cfg, *,
-                          head_offset, g: int):
+                          head_offset, g: int, k_scale=None, v_scale=None):
     """Per-shard attention of the explicit-TP path on rank-stacked
     tensors: q (tp, b, nh_local, 1, hd) holds every rank's heads; each
     head attends to its own KV head of the replicated cache through a
-    gather, and the ``wo`` projection over the local heads is a partial
-    sum."""
+    gather (with an int8 cache, its scales gathered alongside), and the
+    ``wo`` projection over the local heads is a partial sum."""
     tp, _, nh_l, _, hd = q.shape
     hid = head_offset[:, None] + torch.arange(nh_l, device=q.device)
     ranks = torch.arange(tp, device=q.device)[:, None]
     # (tp, b, kv_heads, kv, hd) -> (tp, b, nh_local, kv, hd)
     k_sel = cache_k[ranks, :, hid // g].transpose(1, 2)
     v_sel = cache_v[ranks, :, hid // g].transpose(1, 2)
-    logits = torch.einsum("rbnsh,rbnth->rbnst", q, k_sel).float()
+    eq_k, eq_v = "rbnsh,rbnth->rbnst", "rbnst,rbnth->rbnsh"
+    if k_scale is not None:
+        # (tp, b, nh_local, kv, 1) -> (tp, b, nh_local, 1, kv)
+        ks = k_scale[ranks, :, hid // g].transpose(1, 2).float()
+        vs = v_scale[ranks, :, hid // g].transpose(1, 2).float()
+        ks, vs = ks.transpose(-1, -2), vs.transpose(-1, -2)
+        logits = _bf16_dot(eq_k, q, k_sel) * ks
+    else:
+        logits = torch.einsum(eq_k, q, k_sel).float()
     logits = torch.where(valid, logits * hd ** -0.5, _MASKED)
-    probs = _softmax(logits).to(q.dtype)
-    out = torch.einsum("rbnst,rbnth->rbnsh", probs, v_sel)
+    if k_scale is not None:
+        out = _bf16_dot(eq_v, _softmax(logits) * vs, v_sel).to(q.dtype)
+    else:
+        out = torch.einsum(eq_v, _softmax(logits).to(q.dtype), v_sel)
     nh, _ = padded_heads(cfg)
     if nh > cfg.n_heads:
         keep = (hid < cfg.n_heads).to(out.dtype)          # (tp, nh_local)

@@ -100,20 +100,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_kv: int, *,
     """Decode cache: per period slot, ``(groups, b, kv_heads, kv_i, hd)``
     with ``kv_i = min(window, max_kv)`` for windowed slots. ``ranks``
     adds a leading rank axis: the explicit-TP cache is replicated, every
-    rank holding every KV head."""
+    rank holding every KV head.
+
+    ``dtype=torch.int8`` is the int8 KV cache: ``k_scale``/``v_scale``
+    entries hold each token's per-(batch, head) scale, ``(groups, b,
+    kv_heads, kv_i, 1)`` in bf16 as in the reference (replicated over
+    ``ranks`` like the cache)."""
     _check_family(cfg, DECODE_FAMILIES)
     device = resolve_device(device)
     dtype = dtype or cfg.tdtype
     _, nkv = blocks.padded_heads(cfg)
     lead = (ranks,) if ranks else ()
 
-    def kv(win):
+    def kv(win, last=cfg.hd, dt=dtype):
         size = min(win, max_kv) if win is not None else max_kv
-        return torch.zeros(lead + (n_groups(cfg), batch, nkv, size, cfg.hd),
-                           dtype=dtype, device=device)
+        return torch.zeros(lead + (n_groups(cfg), batch, nkv, size, last),
+                           dtype=dt, device=device)
 
     wins = layer_windows(cfg)
-    return {"k": [kv(w) for w in wins], "v": [kv(w) for w in wins]}
+    cache = {"k": [kv(w) for w in wins], "v": [kv(w) for w in wins]}
+    if dtype == torch.int8:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = [kv(w, 1, torch.bfloat16) for w in wins]
+    return cache
 
 
 def _run_layer(p, x, cfg: ModelConfig, win, cos, sin, backend):
@@ -168,9 +177,15 @@ def _group(tree, g: int, ranked: bool):
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, comms=None):
-    """tokens: (b,) int; pos: int shared by the batch, or a (b,) tensor.
-    Returns (logits (b, vocab) f32, cache) — the cache is updated in
-    place and returned for the reference's calling convention.
+    """tokens: (b,) int; pos: the position the batch shares, an int or a
+    0-d integer tensor. An int is checked on the host (below
+    ``cfg.max_seq`` and a global layer's cache length) and becomes a 0-d
+    tensor; a tensor is read on the device only, so the step holds no
+    host read and a CUDA graph captures it whole, and the caller keeps it
+    in range.
+    Returns (logits (b, vocab) f32, cache) — the cache (with an int8
+    cache its ``k_scale``/``v_scale`` too) is updated in place and
+    returned for the reference's calling convention.
 
     ``comms`` — the explicit-TP hook (``distributed.step.TPDecodeComms``):
     params and cache arrive rank-stacked, the per-layer hidden-state
@@ -192,21 +207,28 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, comms=None):
             "explicit MoE decode needs a compiled 'moe_alltoall' plan "
             "(experts divisible by the TP axis); without one the family "
             "stays on auto")
+    wins = layer_windows(cfg)
+    if not isinstance(pos, torch.Tensor):
+        limit = min([cfg.max_seq] + [c.shape[-2] for c, w
+                                     in zip(cache["k"], wins) if w is None])
+        pos = blocks.device_position(pos, limit, tokens.device)
     if ranked:
         x = comms.embed(params["embed"], tokens)[..., None, :]
     else:
         x = params["embed"][tokens][:, None]              # (b, 1, d)
-    wins = layer_windows(cfg)
     for g in range(n_groups(cfg)):
         for i, win in enumerate(wins):
             lp = _group(params["layers"][i], g, ranked)
-            ck = cache["k"][i][:, g] if ranked else cache["k"][i][g]
-            cv = cache["v"][i][:, g] if ranked else cache["v"][i][g]
+            ck, cv, ks, vs = (
+                (_group(cache[name][i], g, ranked) if name in cache
+                 else None)
+                for name in ("k", "v", "k_scale", "v_scale"))
             h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
             ho = (comms.head_offset(lp["attn"]["wq"].shape[-2])
                   if ranked else None)
             att = blocks.decode_attention(lp["attn"], h, ck, cv, pos, cfg,
-                                          window=win, head_offset=ho)
+                                          window=win, head_offset=ho,
+                                          k_scale=ks, v_scale=vs)
             if ranked:
                 att = comms.hidden(att)     # complete the out-proj partial
             x = x + att

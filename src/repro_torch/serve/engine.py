@@ -11,6 +11,13 @@ the compile counters stay flat across decode calls;
 ``mode="auto"`` runs the unsharded model and keeps the plans as the
 cost/inspection artifact.
 
+On the card the engine captures its one-token step once, at
+``__init__``, in one CUDA graph (:func:`~repro_torch.distributed.step.
+capture_serve_step`), and every token replays it in both modes: the
+position lives on the card and the executor kernel keeps its flag epoch
+there, so nothing of the step is dispatched from Python. On the CPU the
+same step runs eagerly on the same 0-d position tensor.
+
 The reference's fallback ladder (retry, watchdog, explicit -> auto) is
 not ported in this slice: a failure on the explicit path raises.
 """
@@ -23,9 +30,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import comm as comm_lib
-from repro_torch.distributed.step import compile_decode_plans, make_serve_step
+from repro_torch.distributed.step import (capture_serve_step,
+                                          compile_decode_plans,
+                                          make_serve_step)
 from repro_torch.mesh import DeviceLike, RankAxis
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import layer_windows
 
 __all__ = ["ServeConfig", "Engine"]
 
@@ -74,6 +84,7 @@ class ServeConfig:
     temperature: float = 0.0       # 0 -> greedy
     mode: str = "auto"             # 'auto' | 'explicit' (plan replay)
     verify: str = "strict"         # plan verification: 'off'|'warn'|'strict'
+    kv_quant: bool = False         # int8 KV cache with per-token scales
 
 
 class Engine:
@@ -81,7 +92,14 @@ class Engine:
     reference layout, e.g. from ``transformer.init_params`` or
     ``interop.params_from_jax``) with ``tp`` tensor-parallel ranks
     stacked on ``device`` (default: the CUDA card — raises where there is
-    none; pass ``device="cpu"`` for the plain path)."""
+    none; pass ``device="cpu"`` for the plain path).
+
+    On the card ``__init__`` captures the step in a CUDA graph
+    (``self.graph``, a :class:`~repro_torch.distributed.step.
+    CapturedStep`) and raises if the capture fails. The plans' ``hits``
+    then count the capture's warm-up steps and the capture itself, not
+    the replays, as the reference's count traces its step under
+    ``jax.jit``."""
 
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig, *,
                  tp: int = 1, device: DeviceLike = None,
@@ -111,17 +129,40 @@ class Engine:
               if self.mode == "explicit" else {})
         self.step_fn, layout = make_serve_step(
             cfg, self.axis, batch=serve_cfg.batch, max_kv=serve_cfg.max_kv,
-            mode=self.mode, **kw)
+            mode=self.mode, kv_quant=serve_cfg.kv_quant, **kw)
         self.params = layout.params(params)
         self.cache = layout.cache()
         self.pos = 0
         self.active = np.zeros(serve_cfg.batch, bool)
+        self._pos = torch.zeros((), dtype=torch.long, device=self.device)
+        self._global_layers = None in layer_windows(cfg)
+        self.graph = None
+        self._step = self._eager
+        if self.device.type == "cuda":
+            self.graph = capture_serve_step(
+                self.step_fn, self.params, self.cache,
+                batch=serve_cfg.batch, device=self.device)
+            self._step = self.graph.run
+
+    def _eager(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
+        """The step dispatched op by op, at the same 0-d position tensor
+        the graph reads."""
+        self._pos.fill_(pos)
+        logits, self.cache = self.step_fn(self.params, self.cache, tokens,
+                                          self._pos)
+        return logits
 
     def _run_step(self, tokens: torch.Tensor):
+        # the graph cannot bounds-check its position: the host does (a
+        # global layer's cache ends at max_kv, a windowed one wraps)
+        if self.pos >= self.cfg.max_seq or (
+                self._global_layers and self.pos >= self.scfg.max_kv):
+            raise ValueError(
+                f"position {self.pos} is past the model (max_seq="
+                f"{self.cfg.max_seq}) or a global layer's cache (max_kv="
+                f"{self.scfg.max_kv})")
         with torch.inference_mode():
-            logits, self.cache = self.step_fn(self.params, self.cache,
-                                              tokens, self.pos)
-        return logits
+            return self._step(tokens, self.pos)
 
     def plan_report(self) -> dict:
         """Per-bucket cost cards + dispatch hit counts of the decode
