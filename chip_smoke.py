@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 1,2,9 # build, then the MoE slice
     python3 chip_smoke.py --phases 1,2,10 # build, then the prefill slice
     python3 chip_smoke.py --phases 1,2,11 # build, then 2PH and AllGather-matmul
+    python3 chip_smoke.py --phases 1,2,12 # build, then hymba-1.5b served
 
 Phases, each printing one JSON line (any failure raises, exit != 0):
 
@@ -21,8 +22,9 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
 3. kernel vs plain — the DSL-executor kernel against ``TorchExecutor``
    on the card, bit-equal in f32 and bf16, over every registry entry ×
    n in {2, 4, 8} × O0-O3 at three sizes (the last several blocks a rank
-   with a ragged last tile), and the decode plans of qwen3-1.7b and of
-   phi3.5-moe (its ``moe_alltoall`` among them) at TP 2/4; then each
+   with a ragged last tile), and the decode plans of qwen3-1.7b, of
+   phi3.5-moe (its ``moe_alltoall`` among them) and of hymba-1.5b at TP
+   2/4; then each
    decode plan (every bucket) in f32 and bf16 captured once in a CUDA
    graph (one executor node, cooperative) and replayed 16 times on fresh
    inputs with an eager call of the same executor between replays, each
@@ -47,12 +49,13 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
 5. f32 at full width, 4 layers: explicit and auto greedy tokens equal
    over 16 steps (served by graph replay, each against its eager run);
 6. kernel time at each decode shape (the AllReduce and AllGather plans
-   of qwen3-1.7b and of phi3.5-moe, and phi3.5-moe's all_to_all plans)
+   of qwen3-1.7b and of phi3.5-moe, phi3.5-moe's all_to_all plans and
+   hymba-1.5b's AllReduce plans)
    beside its HBM bound, the plain version and a one-call PyTorch
    yardstick, with the launch's blocks a rank and threads, and the same
    program's time on 8 elements a chunk (launch and flags, no copies);
 7. (opt-in, ``--phases 7``) a ``torch.profiler`` breakdown of one
-   decode step in each mode, for the main paths of phases 4 and 9, by
+   decode step in each mode, for the main paths of phases 4, 9 and 12, by
    graph replay and eager, and of one prefill forward of each phase-10
    model: device busy share and the top kernels;
 8. collective library — ``repro_torch.kernels.ops`` and its four
@@ -112,12 +115,20 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    shapes;
    the main path — ``make_prefill_step`` and ``forward`` of qwen3-1.7b
    (8 x 2048 tokens), gemma3-12b (2 x 4096, all 48 layers, 40 of them
-   windowed) and hubert-xlarge (4 x 1024 float frames) at full width and
+   windowed), hubert-xlarge (4 x 1024 float frames) and hymba-1.5b (4 x
+   2048, its published 25 query heads over 5 KV heads: a GQA group of 5
+   at head dim 64, window 1024 on all 32 layers, each beside its SSM
+   branch) at full width and
    depth on seeded random bf16 weights, each exactly one kernel launch
    per layer and no plain-core call, within a relative L2 error of 0.05
    of the same forward with the plain core, the first layer's core
    within 1e-2 on its own inputs, and two controls in plain torch (the
    kernel's rounding inside both limits, a skipped key tile past 1e-2);
+   hymba-1.5b's first-layer SSM scan on the forward's own input against
+   the sequential recurrence on the same (dA, dBx), the final state
+   within 1e-5 and the output within 1e-2 (relative L2), and that
+   layer's SSM branch, its scan alone and its flash launch timed side by
+   side;
    qwen3-1.7b's fused prefill against the engine's token by token (8 x
    128 tokens, through its CUDA graph; bf16 within 0.05, f32 at 4 layers
    within 1e-4 with equal argmax); and the kernel's device and wall time
@@ -158,12 +169,33 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    the device memory one 2PH call allocates, and the main path's peak
    device memory.
 
+12. hybrid attention+SSM — hymba-1.5b at full width and depth (32
+   layers, d_model 1600, head_dim 64, SSM state 16, window 1024 on
+   every layer, vocab 32001, seeded random bf16 weights) with its 25/5
+   heads padded to 40/8 (``pad_heads_to``: 25 do not divide over 4
+   ranks; 40 is the least count that does and keeps the group of 5),
+   TP=4 stacked on the card: 8 requests of 16-token prompts then 32
+   greedy tokens in auto, explicit, auto-int8 and explicit-int8, each by
+   graph replay against the eager step on one engine (first-step logits
+   bit-equal, tokens equal). Explicit runs 3 layer-AllReduce replays a
+   layer (attention, SSM, MLP; 32001 divides no axis of 4, so the
+   embedding and unembedding stay replicated): 96 executor launches
+   captured, 96 a step eager and 96 a replay by the profiler over 4
+   replays. Explicit against auto's first-step logits within the bf16
+   tolerance with both caches; the int8 cache within the reference's bar
+   of the bf16 cache; 4 layers in f32: explicit and auto greedy tokens
+   equal over 16 steps; one temperature run (T 0.8, seed 7, explicit)
+   drawing the same tokens by graph replay and eager, with the draw's
+   device and wall time; auto on the published 25 heads beside the
+   padded config; ms/token of every run and the peak device memory.
+
 The last lines are the card's nvidia-smi line, one ``{"kernels": [...]}``
 JSON object, and ``{"ok": true, "device": {...}}``. The whole record,
 the kernels line among it, also goes to ``chiprun_out/chip_smoke.json``.
 The kernels line holds one entry per kernel. The executor's times are
-the launch-weighted mean of both main paths' decode mixes, each path's
-own under ``by_path`` and every shape's under ``per_shape``; its
+the launch-weighted mean of the main paths' decode mixes, each path's
+own under ``by_path`` (qwen3-1.7b, phi3.5-moe and hymba-1.5b) and every
+shape's under ``per_shape``; its
 ``launches`` are the wrapper's over the main paths (the engines'
 warm-up steps and captures), ``launches_profiled`` the executor kernels
 that the profiler counted over ``replays_profiled`` later replays of
@@ -240,6 +272,9 @@ COLLECTIVE_OPS = (
 # tests/test_kernels_collectives.py's shapes and an odd bf16 count
 GRID_SHAPES = ((8, 128), (16, 256), (8, 384), (3, 129))
 MAIN_DECODE_STEPS = 4
+# profiles of MAIN_DECODE_STEPS replays taken at most until two agree
+# on their kernel records (_profile_replays)
+PROFILE_TRIES = 4
 # per-rank input sizes of the timing sweep at n=4, bf16 (rows, cols); 1PA
 # stops at 1 MiB, only the AllGathers go to 64 MiB
 SWEEP = {"1KiB": (4, 128), "32KiB": (8, 2048), "1MiB": (256, 2048),
@@ -275,11 +310,16 @@ FA_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 FAULT_TILE = 64
 # arch -> (batch, tokens) of its prefill; full width and depth, bf16
 PREFILL = {"qwen3-1.7b": (8, 2048), "gemma3-12b": (2, 4096),
-           "hubert-xlarge": (4, 1024)}
+           "hubert-xlarge": (4, 1024), "hymba-1.5b": (4, 2048)}
 # the kernel's forward against the same forward with the plain attention
 # core (the reference's chunked online softmax): bf16 activations, f32
 # softmax in both, P rounded to bf16 only in the kernel
 PREFILL_REL_TOL = 0.05
+# models whose forward gates are held layer-pinned (_pinned_forward), their
+# unpinned readings recorded: random-weight hymba-1.5b, where bf16 rounding
+# alone (the rounding control in plain torch) read 0.250 end to end on an
+# NVIDIA H100 80GB HBM3 at 700 W. Every other model is held unpinned
+PREFILL_LAYER_PINNED = frozenset({"hymba-1.5b"})
 # fused prefill against the engine's token by token (auto mode)
 FUSED_BATCH, FUSED_TOKENS = 8, 128
 FUSED_F32_LAYERS, FUSED_F32_TOL = 4, 1e-4
@@ -313,6 +353,23 @@ FAULT_LEAF = "ln_attn"
 # and the f32 result rounded to bf16 (bf16 out)
 AGMM_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 AGMM_PREFILL_TOKENS = 8 * 2048          # phase 10's qwen3-1.7b prefill
+# phase 12: the hybrid attention+SSM family on the serving path, full
+# width and depth. 25 query heads do not divide over 4 ranks: the
+# reference's own answer is pad_heads_to (padded heads masked, exact
+# math); 40 is the smallest count that divides over 4 and keeps the
+# group of 5 (KV heads 5 -> 8). Every mode serves that one config, so
+# explicit and auto compare the same weights; auto also serves the
+# published 25 heads, which shows what the padding costs
+HYBRID_ARCH = "hymba-1.5b"
+HYBRID_PAD_HEADS = 40
+HYBRID_F32_LAYERS = 4
+# f32 at full depth: explicit vs auto first-step logits, relative L2
+HYBRID_F32_TOL = 1e-3
+SAMPLE_TEMPERATURE, SAMPLE_SEED = 0.8, 7
+# phase 10's SSM scan on the first layer's inputs against the sequential
+# recurrence on the same (dA, dBx): the final state in f32 (the scan's
+# fold order alone differs), the bf16 output after the projections
+SSM_STATE_REL_TOL, SSM_OUT_REL_TOL = 1e-5, 1e-2
 
 RECORD: dict = {}
 
@@ -492,6 +549,27 @@ def _moe_plans(device):
         batch_local=BATCH, tp=tp) for tp in (2, TP)}
 
 
+def _hybrid_cfg(n_layers=None, dtype="bfloat16", pad=HYBRID_PAD_HEADS):
+    """hymba-1.5b with its heads padded to ``pad`` (0: the published
+    25), at ``n_layers`` (default: all 32) and ``dtype``."""
+    from repro_torch import configs
+    cfg = configs.get_config(HYBRID_ARCH)
+    return dataclasses.replace(cfg, pad_heads_to=pad, dtype=dtype,
+                               n_layers=n_layers or cfg.n_layers)
+
+
+def _hybrid_plans(device):
+    """hymba-1.5b's decode plans at TP 2 and 4 (batch_local 8): the layer
+    AllReduce alone (its vocab of 32001 divides neither axis, so no
+    logits AllGather), on the kernel backend."""
+    from repro_torch.core.comm import Communicator
+    from repro_torch.distributed.step import compile_decode_plans
+    cfg = _hybrid_cfg()
+    return {tp: compile_decode_plans(
+        cfg, Communicator("model", n=tp, device=device),
+        batch_local=BATCH, tp=tp) for tp in (2, TP)}
+
+
 def phase_kernel_vs_plain(device, gen):
     from repro_torch.core import algorithms, passes
     from repro_torch.core.executor import (OPCODES, THREADS, CudaExecutor,
@@ -530,6 +608,9 @@ def phase_kernel_vs_plain(device, gen):
                 for pname, bp in plans.items()]
     families += [(MOE_ARCH, tp, pname, bp)
                  for tp, plans in _moe_plans(device).items()
+                 for pname, bp in plans.items()]
+    families += [(HYBRID_ARCH, tp, pname, bp)
+                 for tp, plans in _hybrid_plans(device).items()
                  for pname, bp in plans.items()]
     for arch, tp, pname, bp in families:
         for b, plan in bp.plans.items():
@@ -614,9 +695,10 @@ def _plans_graph_replay(device, gen, families):
                 max_abs_err=err)
 
 
-def _serve(eng, prompts, n_decode):
-    """Serve ``prompts`` then ``n_decode`` greedy tokens on ``eng`` from
-    position 0: the first step's logits, the last prefill logits, the
+def _serve(eng, prompts, n_decode, seed=0):
+    """Serve ``prompts`` then ``n_decode`` tokens on ``eng`` from
+    position 0 (greedy, or drawn from ``seed`` at the engine's
+    temperature): the first step's logits, the last prefill logits, the
     tokens, ms/token of the decode loop and the executor launches the
     wrapper made in the first step."""
     from repro_torch.core.executor import CudaExecutor
@@ -632,7 +714,7 @@ def _serve(eng, prompts, n_decode):
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
-    toks = eng.decode(logits, num_tokens=n_decode)
+    toks = eng.decode(logits, num_tokens=n_decode, seed=seed)
     e1.record()
     torch.cuda.synchronize()
     return dict(first=first.float().cpu(), last=logits.float().cpu(),
@@ -651,24 +733,44 @@ def _executor_kernels(prof):
 def _profile_replays(eng, steps, ms_per_token):
     """``steps`` replays of the engine's graph under ``torch.profiler``:
     the executor kernels it ran, device busy ms a step and the busy share
-    of the graph's unprofiled ms/token."""
+    of the graph's unprofiled ms/token.
+
+    CUPTI now and then drops records of graph-replayed kernels, of every
+    kind (``scripts/profiler_records.py`` counts how often). A graph
+    replays the same nodes every time, so a profile is complete when
+    another one holds as many kernel records: profiles are taken until
+    two agree (at most PROFILE_TRIES), and the counts are read from that
+    one. A launch missing from or added to the graph shows in every
+    profile."""
     from torch.profiler import ProfilerActivity, profile
     tok = torch.zeros(eng.scfg.batch, dtype=torch.long, device=eng.device)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            eng._run_step(tok)
-            eng.pos += 1
+    records = []
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                eng._run_step(tok)
+                eng.pos += 1
+            torch.cuda.synchronize()
+        total = sum(r[1] for r in _device_rows(prof, 1))
+        if total in records:
+            break
+        records.append(total)
+    else:
+        check(False, f"no two of {PROFILE_TRIES} profiles of {steps} "
+              f"replays hold as many kernel records: {records}")
     busy_ms = sum(r[0] for r in _device_rows(prof, steps)) / 1e3
     return dict(profiled_executor_kernels=_executor_kernels(prof),
                 profiled_replays=steps, device_busy_ms=busy_ms,
-                device_busy_share=busy_ms / ms_per_token)
+                device_busy_share=busy_ms / ms_per_token,
+                profiled_kernel_records=total,
+                profiles_taken=len(records) + 1)
 
 
 def _run_engine(cfg, params, prompts, mode, n_decode, count_launches,
-                keep_params=False, kv_quant=False, profile_steps=0):
+                keep_params=False, kv_quant=False, profile_steps=0,
+                temperature=0.0, seed=0):
     """One engine on the card (its step captured in a CUDA graph at
     construction), driven twice from position 0 on the same state: by
     graph replay, then, with the cache zeroed, by the eager step. Returns
@@ -679,22 +781,25 @@ def _run_engine(cfg, params, prompts, mode, n_decode, count_launches,
     capture — and the graph-served tokens; set to 0 just before with
     ``count_launches``), the eager run's launches, and, with
     ``profile_steps``, a profiler count of the executor kernels over that
-    many replays with the busy share under replay. Checks graph against
-    eager: first-step logits bit-equal and every token equal."""
+    many replays with the busy share under replay. With a
+    ``temperature``, the tokens are drawn from ``seed`` in both runs.
+    Checks graph against eager: first-step logits bit-equal and every
+    token equal."""
     from repro_torch.core.executor import CudaExecutor
     from repro_torch.serve.engine import Engine, ServeConfig
     torch.cuda.synchronize()
     if count_launches:
         CudaExecutor.launches = 0           # just before the main path
     eng = Engine(cfg, params, ServeConfig(batch=prompts.shape[0],
-                                          max_kv=MAX_KV, kv_quant=kv_quant),
+                                          max_kv=MAX_KV, kv_quant=kv_quant,
+                                          temperature=temperature),
                  tp=TP, mode=mode)
     check(eng.graph is not None, "the engine captured no graph")
     if mode == "explicit":
         backends = {p.backend for bp in eng.decode_plans.values()
                     for p in bp.plans.values()}
         check(backends == {"cuda"}, f"explicit plans on {backends}")
-    out = _serve(eng, prompts, n_decode)
+    out = _serve(eng, prompts, n_decode, seed)
     torch.cuda.synchronize()
     # read just after (an auto run does not count: it makes none)
     out["launches"] = CudaExecutor.launches if count_launches else None
@@ -708,7 +813,7 @@ def _run_engine(cfg, params, prompts, mode, n_decode, count_launches,
             leaf.zero_()
     eng.pos, eng._step = 0, eng._eager
     before = CudaExecutor.launches
-    eager = _serve(eng, prompts, n_decode)
+    eager = _serve(eng, prompts, n_decode, seed)
     eager["launches"] = CudaExecutor.launches - before
     out["eager"] = eager
     label = f"{cfg.name} {mode}{' int8' if kv_quant else ''}"
@@ -776,11 +881,43 @@ def _int8_vs_fp(q, fp) -> dict:
 def _run_record(r) -> dict:
     keep = ("ms_per_token", "graph_launches", "launches", "graph_replays",
             "profiled_executor_kernels", "profiled_replays",
+            "profiled_kernel_records", "profiles_taken",
             "device_busy_ms", "device_busy_share")
     out = {k: r[k] for k in keep if k in r}
     out["eager_ms_per_token"] = r["eager"]["ms_per_token"]
     out["eager_launches"] = r["eager"]["launches"]
     return out
+
+
+def _serve_four_modes(cfg, params, prompts, per_step, label,
+                      keep_params=False):
+    """:func:`_run_engine` in auto, explicit, auto-int8 and explicit-int8
+    (with ``keep_params``, the explicit run keeps its rank-stacked
+    params): each explicit run held to ``per_step`` executor launches
+    (:func:`_graph_gates`), each auto run to none, every run's logits
+    finite and its tokens of the served shape."""
+    runs = {}
+    for name, mode, quant in (("auto", "auto", False),
+                              ("explicit", "explicit", False),
+                              ("auto_int8", "auto", True),
+                              ("explicit_int8", "explicit", True)):
+        runs[name] = _run_engine(cfg, params, prompts, mode, DECODE,
+                                 mode == "explicit", kv_quant=quant,
+                                 keep_params=keep_params
+                                 and name == "explicit",
+                                 profile_steps=MAIN_DECODE_STEPS)
+        if mode == "explicit":
+            _graph_gates(runs[name], per_step, PROMPT + DECODE,
+                         f"{label} {name}")
+        else:
+            check(runs[name]["graph_launches"] == 0
+                  and runs[name]["profiled_executor_kernels"] == 0,
+                  f"{label} {name}: executor launches in auto mode")
+    for r in runs.values():
+        check(bool(torch.isfinite(r["first"]).all()
+                   and torch.isfinite(r["last"]).all()), "non-finite logits")
+        check(r["tokens"].shape == (BATCH, DECODE), "token shape")
+    return runs
 
 
 def phase_main_path(device):
@@ -793,26 +930,8 @@ def phase_main_path(device):
     init_s = time.perf_counter() - t
     prompts = np.random.RandomState(0).randint(
         0, cfg.vocab, (BATCH, PROMPT)).astype(np.int64)
-    steps = PROMPT + DECODE
     per_step = 2 * cfg.n_layers + 2           # layers, embed, logits
-    runs = {}
-    for name, mode, quant in (("auto", "auto", False),
-                              ("explicit", "explicit", False),
-                              ("auto_int8", "auto", True),
-                              ("explicit_int8", "explicit", True)):
-        runs[name] = _run_engine(cfg, params, prompts, mode, DECODE,
-                                 mode == "explicit", kv_quant=quant,
-                                 profile_steps=MAIN_DECODE_STEPS)
-        if mode == "explicit":
-            _graph_gates(runs[name], per_step, steps, f"{ARCH} {name}")
-        else:
-            check(runs[name]["graph_launches"] == 0
-                  and runs[name]["profiled_executor_kernels"] == 0,
-                  f"{ARCH} {name}: executor launches in auto mode")
-    for r in runs.values():
-        check(bool(torch.isfinite(r["first"]).all()
-                   and torch.isfinite(r["last"]).all()), "non-finite logits")
-        check(r["tokens"].shape == (BATCH, DECODE), "token shape")
+    runs = _serve_four_modes(cfg, params, prompts, per_step, ARCH)
     auto, explicit = runs["auto"], runs["explicit"]
     diff = (explicit["first"] - auto["first"])
     rel = _rel(explicit["first"], auto["first"])
@@ -896,6 +1015,8 @@ def phase_kernel_time(device, gen):
                 for pname, bp in _decode_plans(device)[TP].items()]
     families += [(MOE_ARCH, pname, bp)
                  for pname, bp in _moe_plans(device)[TP].items()]
+    families += [(HYBRID_ARCH, pname, bp)
+                 for pname, bp in _hybrid_plans(device)[TP].items()]
     rows_out = []
     for arch, pname, bp in families:
         for b, plan in bp.plans.items():
@@ -987,7 +1108,8 @@ def _profile_prefill(device):
 def phase_profile(device):
     """Opt-in (``--phases 7``): where one decode step's time goes —
     ``torch.profiler`` over 4 steps of each mode at each main path's
-    shape (qwen3-1.7b, phase 4; phi3.5-moe at 8 layers, phase 9), served
+    shape (qwen3-1.7b, phase 4; phi3.5-moe at 8 layers, phase 9;
+    hymba-1.5b with its heads padded to 40, phase 12), served
     as the engine serves them, by replaying its CUDA graph, and the same
     steps eager beside them: device busy share = summed kernel time over
     the steps' wall time, with and without the profiler, and the kernels
@@ -1034,7 +1156,8 @@ def phase_profile(device):
                          for us, c, k in rows[:12]])
 
     for arch, cfg in ((ARCH, configs.get_config(ARCH)),
-                      (MOE_ARCH, _moe_cfg(MOE_LAYERS))):
+                      (MOE_ARCH, _moe_cfg(MOE_LAYERS)),
+                      (HYBRID_ARCH, _hybrid_cfg())):
         params = tf.init_params(cfg, torch.Generator(device=device)
                                 .manual_seed(0), device=device)
         out[arch] = {}
@@ -1988,6 +2111,75 @@ def _first_cores():
 
 
 @contextlib.contextmanager
+def _first_ssm():
+    """Keep the weights and input of the first SSM branch (layer 0 of a
+    hybrid model) that a forward runs while the block runs."""
+    from repro_torch.models import ssm
+    seen = []
+    forward = ssm.ssm_forward
+
+    def keep(p, x, cfg, state=None):
+        if not seen:
+            seen.append((p, x))
+        return forward(p, x, cfg, state)
+
+    ssm.ssm_forward = keep
+    try:
+        yield seen
+    finally:
+        ssm.ssm_forward = forward
+
+
+def _ssm_first_layer(cfg, first, cores):
+    """The first layer's SSM scan on the forward's own input against the
+    sequential recurrence ``h_t = dA_t h_{t-1} + dBx_t`` on the same
+    ``(dA, dBx)``, through the same output tail: the final state (f32)
+    and the output (bf16) in relative L2. Then device ms of that layer's
+    SSM branch (``ssm_forward``), of its scan alone (the scan on copies
+    of ``dA``/``dBx``, less the copies) and of its flash launch on its
+    own q/k/v, side by side."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import ssm
+    (p, x), = first
+    with torch.inference_mode():
+        out, final = ssm.ssm_forward(p, x, cfg)
+        xin, z, dA, dBx, C = ssm.ssm_params(p, x, cfg)
+        seq = torch.empty_like(dBx)
+        h = torch.zeros_like(dBx[:, 0])
+        for t in range(dBx.shape[1]):
+            h = dA[:, t] * h + dBx[:, t]
+            seq[:, t] = h
+        y = ssm._gate(torch.einsum("bsdk,bsk->bsd", seq, C), xin, z, p)
+        want = ssm._proj(y.to(x.dtype), p["w_out"])
+        rec = dict(shape=list(dA.shape), state_rel_err=_rel(final, h),
+                   out_rel_err=_rel(out, want),
+                   state_rel_tol=SSM_STATE_REL_TOL,
+                   out_rel_tol=SSM_OUT_REL_TOL)
+        del seq, y, want, out
+        work = (torch.empty_like(dA), torch.empty_like(dBx))
+
+        def copies():
+            work[0].copy_(dA)
+            work[1].copy_(dBx)
+
+        def scanned():
+            copies()
+            ssm.scan(*work)
+
+        rec["ssm_forward_ms"] = device_ms(lambda: ssm.ssm_forward(p, x, cfg),
+                                          5)[0]
+        rec["scan_ms"] = device_ms(scanned, 5)[0] - device_ms(copies, 5)[0]
+        q, k, v, causal = cores[cfg.window]
+        rec["flash_ms"] = device_ms(lambda: fa.flash_attention(
+            q, k, v, causal=causal, window=cfg.window), 5)[0]
+        rec["ssm_forward_ms_per_forward"] = rec["ssm_forward_ms"] * \
+            cfg.n_layers
+        del work, dA, dBx
+    torch.cuda.empty_cache()
+    return rec
+
+
+@contextlib.contextmanager
 def _plain_core_as(core):
     """The model's plain attention core replaced by ``core`` while the
     block runs."""
@@ -2059,6 +2251,74 @@ def _core_controls(cfg, first):
     return out
 
 
+@contextlib.contextmanager
+def _pinned_layers(n_layers, steps, pin=None):
+    """Record the input of every ``rms_norm`` the decode step calls (per
+    layer ``ln_attn`` and ``ln_mlp``, then ``ln_f``: 2L + 1 a step, step
+    after step), and with ``pin`` (such a record, of another run) feed
+    each layer's norms the recorded input instead of the run's own
+    residual (broadcast over the ranks of an explicit run); ``ln_f``
+    keeps the run's own. A pinned run computes every layer on the
+    recorded run's layer inputs, so the difference of its logits is the
+    sum of each layer's own, not compounded through the layers above.
+    Checks that the run made ``steps`` (steps or forwards) of 2L + 1
+    norms and that each pinned input has the trailing shape of the one
+    it replaces, so a norm call more or less cannot misalign the runs."""
+    from repro_torch.models import transformer as tf
+    norm = tf.rms_norm
+    seen = []
+    per_step = 2 * n_layers + 1
+
+    def hooked(x, scale, eps=1e-6):
+        i = len(seen)
+        seen.append(x)
+        if pin is not None and i % per_step < 2 * n_layers:
+            check(pin[i].shape == x.shape[x.dim() - pin[i].dim():],
+                  f"pinned norm input {i}: {tuple(pin[i].shape)} for "
+                  f"{tuple(x.shape)}")
+            x = pin[i].expand(x.shape)
+        return norm(x, scale, eps)
+
+    tf.rms_norm = hooked
+    try:
+        yield seen
+    finally:
+        tf.rms_norm = norm
+    check(len(seen) == steps * per_step,
+          f"{len(seen)} norm calls in {steps} steps, want {per_step} each")
+
+
+def _pinned_forward(params, cfg, tokens):
+    """The kernel's forward, and the rounding and fault controls, each
+    layer-pinned (:func:`_pinned_layers`) to the plain core's forward:
+    every layer computed on the plain forward's layer inputs, so each
+    reading is the sum of the layers' own differences, not their
+    compounding. Relative L2 of the final hidden states (and of the last
+    position's logits) against the plain forward's."""
+    from repro_torch.models import transformer as tf
+    out = {}
+    with torch.inference_mode():
+        with _pinned_layers(cfg.n_layers, 1) as record:
+            plain = tf.forward(params, cfg, tokens, backend="torch")
+        with _pinned_layers(cfg.n_layers, 1, record):
+            hidden = tf.forward(params, cfg, tokens)
+        out["hidden_rel_err"] = _rel(hidden, plain)
+        out["last_logits_rel_err"] = _rel(
+            tf.logits_fn(params, cfg, hidden[:, -1:]),
+            tf.logits_fn(params, cfg, plain[:, -1:]))
+        del hidden
+        for name, fault in (("rounding", False), ("fault", True)):
+            with _plain_core_as(functools.partial(_control_core,
+                                                  fault=fault)), \
+                    _pinned_layers(cfg.n_layers, 1, record):
+                ctl = tf.forward(params, cfg, tokens, backend="torch")
+            out[f"{name}_hidden_rel_err"] = _rel(ctl, plain)
+            del ctl
+    del record, plain
+    torch.cuda.empty_cache()
+    return out
+
+
 def _prefill_main_path(device):
     """Each model at full width and depth on seeded random bf16 weights:
     ``make_prefill_step`` and ``forward`` each launch the kernel once per
@@ -2069,7 +2329,10 @@ def _prefill_main_path(device):
     within both limits, the fault past the core's (end to end, bf16
     rounding through the layers alone reads 0.02-0.03, so the fault's
     reading there is kept, not held); prefill ms per forward (median of
-    PREFILL_REPEATS step calls)."""
+    PREFILL_REPEATS step calls). A model of PREFILL_LAYER_PINNED
+    (random-weight hymba-1.5b amplifies bf16 rounding through its 32
+    layers) has its forward gates held layer-pinned
+    (:func:`_pinned_forward`) and its unpinned readings kept."""
     from repro_torch import configs
     from repro_torch.core.executor import CudaExecutor
     from repro_torch.distributed.step import make_prefill_step
@@ -2093,7 +2356,7 @@ def _prefill_main_path(device):
         torch.cuda.synchronize()
         counts = {}
         with _plain_attention_calls() as plain_calls, \
-                _first_cores() as first:
+                _first_cores() as first, _first_ssm() as first_ssm:
             for name, run in (
                     ("step", lambda: step(params, tokens)),
                     ("forward", lambda: tf.forward(params, cfg, tokens))):
@@ -2139,7 +2402,13 @@ def _prefill_main_path(device):
             rec["logits_rel_err"] = _rel(logits, plain_logits)
             del logits, plain_logits
         rec["cores"] = _core_controls(cfg, first)
-        del first
+        if cfg.family == "hybrid":
+            rec["ssm"] = _ssm_first_layer(cfg, first_ssm, first)
+            check(rec["ssm"]["state_rel_err"] <= SSM_STATE_REL_TOL
+                  and rec["ssm"]["out_rel_err"] <= SSM_OUT_REL_TOL,
+                  f"{arch}: SSM scan vs the sequential recurrence "
+                  f"{rec['ssm']}")
+        del first, first_ssm
         with torch.inference_mode():
             for name, fault in (("rounding", False), ("fault", True)):
                 with _plain_core_as(functools.partial(_control_core,
@@ -2149,13 +2418,17 @@ def _prefill_main_path(device):
                 if not fault:
                     rec["hidden_rel_err_vs_rounding"] = _rel(hidden, ctl)
                 del ctl
+        if arch in PREFILL_LAYER_PINNED:
+            rec["pinned"] = _pinned_forward(params, cfg, tokens)
         print(json.dumps(dict(phase="prefill_model", arch=arch, **rec)),
               flush=True)
+        held = rec.get("pinned", rec)
         for key in ("hidden_rel_err", "last_logits_rel_err",
                     "logits_rel_err", "rounding_hidden_rel_err"):
-            if key in rec:
-                check(rec[key] <= PREFILL_REL_TOL,
-                      f"{arch}: {key} {rec[key]} > {PREFILL_REL_TOL}")
+            if key in held:
+                check(held[key] <= PREFILL_REL_TOL,
+                      f"{arch}: {key} {held[key]} > {PREFILL_REL_TOL}"
+                      f"{' (layer-pinned)' if held is not rec else ''}")
         for key, core in rec["cores"].items():
             check(core["kernel_rel_err"] <= FA_REL_TOL[torch.bfloat16],
                   f"{arch} {key}: kernel vs plain on the layer's own "
@@ -2849,11 +3122,294 @@ def phase_hierarchical(device, gen):
                 err_plan=max(r["plan_max_abs_err_plain"] for r in leaves))
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the hybrid attention+SSM family (hymba-1.5b) on the serving path
+# ---------------------------------------------------------------------------
+def _draw_time(logits, device):
+    """Device and wall (host dispatch included) ms of one temperature
+    draw, ``sampling.categorical`` at the engine's temperature on the
+    batch's (b, vocab) f32 logits, the key split on the host before it
+    as ``Engine.decode`` does."""
+    from repro_torch.serve import sampling
+    logits = logits.to(device)
+    key = sampling.key(SAMPLE_SEED)
+
+    def draw():
+        _, sub = sampling.split(key)
+        return sampling.categorical(sub, logits / SAMPLE_TEMPERATURE)
+
+    ms, covered = device_ms(draw, 50)
+    return dict(ms=ms, ms_wall=wall_ms(draw, 50), sleep_covered=covered)
+
+
+@contextlib.contextmanager
+def _explicit_fault(kind):
+    """A deliberately wrong explicit hybrid step, for the pinned gate's
+    fault controls: ``"ssm_replay"`` skips the SSM out-proj partial's
+    AllReduce replay (the first of a layer's three ``comms.hidden``
+    calls), so each rank averages attention with its own partial;
+    ``"ssm_rows"`` gives rank r the ``xin``/``z`` rows of rank r - 1 (a
+    wrong ``d_offset`` row block)."""
+    from repro_torch.distributed import step as st
+    from repro_torch.models import ssm
+    hidden, local = st.TPDecodeComms.hidden, ssm._local_rows
+    calls = []
+
+    def skip_ssm(self, x):
+        calls.append(None)
+        return x if len(calls) % 3 == 1 else hidden(self, x)
+
+    if kind == "ssm_replay":
+        st.TPDecodeComms.hidden = skip_ssm
+    else:
+        ssm._local_rows = lambda t, off, d: local(t, off, d).roll(1, 0)
+    try:
+        yield
+    finally:
+        st.TPDecodeComms.hidden, ssm._local_rows = hidden, local
+
+
+def _eager_steps(cfg, mode, params, toks, device, quant=False, pin=None,
+                 steps=PROMPT):
+    """``steps`` prompt tokens through ``make_serve_step`` eagerly, from
+    position 0 on a fresh cache, norms recorded (and with ``pin``,
+    layer-pinned: :func:`_pinned_layers`): the first-step and last-step
+    logits and the record."""
+    from repro_torch.distributed.step import make_serve_step
+    from repro_torch.mesh import RankAxis
+    step, layout = make_serve_step(cfg, RankAxis("model", TP, device),
+                                   batch=BATCH, max_kv=MAX_KV, mode=mode,
+                                   kv_quant=quant)
+    cache = layout.cache()
+    with torch.inference_mode(), _pinned_layers(cfg.n_layers, steps,
+                                                pin) as seen:
+        for t in range(steps):
+            logits = step(params, cache, toks[:, t], t)[0].float().cpu()
+            if t == 0:
+                first = logits
+    return dict(first=first, last=logits), seen
+
+
+def _hybrid_pinned(cfg, params, eparams, prompts, device):
+    """The prompts' 16 steps, eager, from position 0 on fresh caches, in
+    auto (recorded; and with the token's embedding rows moved by one
+    bf16 step, the control), explicit, and layer-pinned to auto's record
+    (:func:`_pinned_layers`): explicit, auto-int8, explicit-int8 and the
+    first step of each explicit fault (:func:`_explicit_fault`). The
+    first-step and last-step logits of each."""
+    toks = torch.as_tensor(prompts, dtype=torch.long, device=device)
+    out = {}
+    out["auto"], record = _eager_steps(cfg, "auto", params, toks, device)
+    out["explicit"], _ = _eager_steps(cfg, "explicit", eparams, toks, device)
+    for name, mode, p, quant in (
+            ("explicit_pinned", "explicit", eparams, False),
+            ("auto_int8_pinned", "auto", params, True),
+            ("explicit_int8_pinned", "explicit", eparams, True)):
+        out[name], _ = _eager_steps(cfg, mode, p, toks, device, quant=quant,
+                                    pin=record)
+    for kind in ("ssm_replay", "ssm_rows"):
+        with _explicit_fault(kind):
+            out[f"fault_{kind}"], _ = _eager_steps(
+                cfg, "explicit", eparams, toks, device, pin=record, steps=1)
+    del record
+    # the control: auto's own first step with the token's embedding rows
+    # one bf16 step off (each element times 1 +- 2**-7)
+    embed = params["embed"].clone()
+    rows = embed[toks[:, 0]].float()
+    sign = torch.randint(0, 2, rows.shape, generator=torch.Generator(
+        device=device).manual_seed(14), device=device) * 2 - 1
+    embed[toks[:, 0]] = (rows * (1 + sign * 2.0 ** -7)).to(embed.dtype)
+    out["auto_one_step_off"], _ = _eager_steps(
+        cfg, "auto", dict(params, embed=embed), toks, device, steps=1)
+    del embed
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hybrid(device):
+    """hymba-1.5b at full width and depth (32 layers, d_model 1600, 25/5
+    heads padded to 40/8, head_dim 64, window 1024 on every layer, SSM
+    state 16, vocab 32001, seeded random bf16 weights), TP=4 stacked on
+    the card: 8 requests of 16-token prompts then 32 greedy tokens in
+    auto, explicit, auto-int8 and explicit-int8, each by graph replay
+    against the eager step on one engine (first-step logits bit-equal,
+    tokens equal). Explicit makes 3 layer-AllReduce replays a layer
+    (attention, SSM, MLP; the vocab divides no axis of 4, so no
+    embedding replay and no logits AllGather): 96 executor launches
+    captured, 96 a step eager, 96 a replay by the profiler over 4
+    replays.
+
+    A random-weight hymba is chaotic in bf16 at full depth: one bf16 step
+    on auto's own input moves auto's first-step logits by more than the
+    bf16 bar (the control, below). So explicit against auto is held to
+    the bf16 bar (first-step logits, both caches) and int8 against bf16
+    to the reference's bar (after the 16 prompt tokens) layer-pinned:
+    every layer computed on auto's bf16 layer inputs
+    (:func:`_pinned_layers`), eagerly, the unpinned explicit step first
+    checked bit-equal to the served graph's first step; two wrong
+    explicit steps (:func:`_explicit_fault`), pinned the same way, must
+    read past the bf16 bar; the served (unpinned) differences and the
+    control are recorded beside them. In f32: at 4 layers, explicit and
+    auto greedy tokens equal over 16 steps; at all 32, explicit against
+    auto first-step logits within HYBRID_F32_TOL unpinned (the served
+    bf16 gap is rounding, not a fault that grows with depth). One
+    temperature run (T 0.8, seed 7) drawing the same tokens by graph
+    replay and eager, and the draw's time; auto on the published 25
+    heads beside the padded config."""
+    from repro_torch.distributed.sharding import explicit_decode_params
+    from repro_torch.mesh import RankAxis
+    from repro_torch.models import transformer as tf
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = _hybrid_cfg()
+    t = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=device)
+                            .manual_seed(12), device=device)
+    init_s = time.perf_counter() - t
+    prompts = np.random.RandomState(12).randint(
+        0, cfg.vocab, (BATCH, PROMPT)).astype(np.int64)
+    per_step = 3 * cfg.n_layers
+    runs = _serve_four_modes(cfg, params, prompts, per_step, HYBRID_ARCH,
+                             keep_params=True)
+    check(set(runs["explicit"]["plans"]) == {"layer_allreduce"},
+          f"{HYBRID_ARCH} plans: {sorted(runs['explicit']['plans'])}")
+    # served, unpinned: recorded
+    rel = {name: _rel(runs[f"explicit{name}"]["first"],
+                      runs[f"auto{name}"]["first"]) for name in ("", "_int8")}
+    int8_vs_bf16 = {m: _int8_vs_fp(runs[f"{m}_int8"]["last"], runs[m]["last"])
+                    for m in ("auto", "explicit")}
+    # layer-pinned: held
+    pinned = _hybrid_pinned(cfg, params, runs["explicit"].pop("params"),
+                            prompts, device)
+    check(torch.equal(pinned["explicit"]["first"],
+                      runs["explicit"]["first"]),
+          f"{HYBRID_ARCH}: the eager explicit first step differs from the "
+          f"served graph's")
+    check(torch.equal(pinned["auto"]["first"], runs["auto"]["first"]),
+          f"{HYBRID_ARCH}: the eager auto first step differs from the "
+          f"served graph's")
+    rel_pinned = {
+        "": _rel(pinned["explicit_pinned"]["first"],
+                 pinned["auto"]["first"]),
+        "_int8": _rel(pinned["explicit_int8_pinned"]["first"],
+                      pinned["auto_int8_pinned"]["first"])}
+    for name, v in rel_pinned.items():
+        check(v <= BF16_REL_TOL, f"{HYBRID_ARCH}{name} first-step logits, "
+              f"explicit vs auto, layer-pinned: rel {v}")
+    # the same comparison fails a wrong explicit path
+    faults = {kind: _rel(pinned[f"fault_{kind}"]["first"],
+                         pinned["auto"]["first"])
+              for kind in ("ssm_replay", "ssm_rows")}
+    for kind, v in faults.items():
+        check(v > BF16_REL_TOL, f"{HYBRID_ARCH}: the layer-pinned fault "
+              f"control {kind} reads rel {v}, within the bar")
+    int8_vs_bf16_pinned = {
+        "auto": _int8_vs_fp(pinned["auto_int8_pinned"]["last"],
+                            pinned["auto"]["last"]),
+        "explicit": _int8_vs_fp(pinned["explicit_int8_pinned"]["last"],
+                                pinned["explicit_pinned"]["last"])}
+    for m, v in int8_vs_bf16_pinned.items():
+        check(v["rel_err"] < INT8_REL_TOL
+              and v["argmax_agreement"] >= INT8_ARGMAX_AGREEMENT,
+              f"{HYBRID_ARCH} int8 vs bf16 cache ({m}), layer-pinned: {v}")
+    control = _rel(pinned["auto_one_step_off"]["first"],
+                   pinned["auto"]["first"])
+    del pinned
+    # one temperature run, explicit: graph and eager draw the same tokens
+    sampled = _run_engine(cfg, params, prompts, "explicit", DECODE, False,
+                          temperature=SAMPLE_TEMPERATURE, seed=SAMPLE_SEED)
+    check(not np.array_equal(sampled["tokens"], runs["explicit"]["tokens"]),
+          f"{HYBRID_ARCH}: T={SAMPLE_TEMPERATURE} drew the greedy tokens")
+    draw = _draw_time(sampled["last"], device)
+    del params
+    torch.cuda.empty_cache()
+    # the published 25 heads, auto: what the padding costs
+    cfg25 = _hybrid_cfg(pad=0)
+    params = tf.init_params(cfg25, torch.Generator(device=device)
+                            .manual_seed(12), device=device)
+    published = _run_engine(cfg25, params, prompts, "auto", DECODE, False)
+    del params
+    torch.cuda.empty_cache()
+    # f32 at reduced depth: explicit and auto greedy tokens equal
+    cfg32 = _hybrid_cfg(HYBRID_F32_LAYERS, "float32")
+    params = tf.init_params(cfg32, torch.Generator(device=device)
+                            .manual_seed(13), device=device)
+    f32 = {mode: _run_engine(cfg32, params, prompts, mode, 16, False)
+           for mode in ("auto", "explicit")}
+    f32_equal = bool(np.array_equal(f32["auto"]["tokens"],
+                                    f32["explicit"]["tokens"]))
+    del params
+    torch.cuda.empty_cache()
+    check(f32_equal, f"{HYBRID_ARCH} f32: explicit and auto greedy tokens "
+          f"differ")
+    # f32 at full depth, unpinned: explicit vs auto first-step logits. A
+    # fault that grows with depth reads as the served bf16 gap does; f32
+    # rounding, amplified as bf16's is, reads far below HYBRID_F32_TOL
+    cfg32 = _hybrid_cfg(dtype="float32")
+    params = tf.init_params(cfg32, torch.Generator(device=device)
+                            .manual_seed(13), device=device)
+    toks = torch.as_tensor(prompts, dtype=torch.long, device=device)
+    eparams = explicit_decode_params(params, cfg32,
+                                     RankAxis("model", TP, device))
+    first32 = {mode: _eager_steps(cfg32, mode, p, toks, device,
+                                  steps=1)[0]["first"]
+               for mode, p in (("auto", params), ("explicit", eparams))}
+    f32_full_rel = _rel(first32["explicit"], first32["auto"])
+    del params, eparams, first32
+    torch.cuda.empty_cache()
+    check(f32_full_rel <= HYBRID_F32_TOL, f"{HYBRID_ARCH} f32, "
+          f"{cfg32.n_layers} layers: explicit vs auto first-step rel "
+          f"{f32_full_rel}")
+    emit("hybrid", arch=HYBRID_ARCH, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         pad_heads_to=cfg.pad_heads_to, head_dim=cfg.hd, d_ff=cfg.d_ff,
+         vocab=cfg.vocab, ssm_state=cfg.ssm.state_dim, window=cfg.window,
+         dtype=cfg.dtype, tp=TP, batch=BATCH, prompt=PROMPT, decode=DECODE,
+         init_params_s=init_s,
+         ms_per_token={k: r["ms_per_token"] for k, r in runs.items()},
+         ms_per_token_eager={k: r["eager"]["ms_per_token"]
+                             for k, r in runs.items()},
+         ms_per_token_auto_published_heads=published["ms_per_token"],
+         ms_per_token_auto_published_heads_eager=published["eager"][
+             "ms_per_token"],
+         runs={k: _run_record(r) for k, r in runs.items()},
+         launches=runs["explicit"]["launches"], launches_per_step=per_step,
+         first_step_rel_err_pinned=rel_pinned[""],
+         int8_first_step_rel_err_pinned=rel_pinned["_int8"],
+         int8_vs_bf16_pinned=int8_vs_bf16_pinned,
+         bf16_rel_tol=BF16_REL_TOL, int8_rel_tol=INT8_REL_TOL,
+         int8_argmax_agreement_min=INT8_ARGMAX_AGREEMENT,
+         served_unpinned=dict(first_step_rel_err=rel[""],
+                              int8_first_step_rel_err=rel["_int8"],
+                              int8_vs_bf16=int8_vs_bf16),
+         control_one_bf16_step_on_auto_input=control,
+         token_agreement=float((runs["explicit"]["tokens"]
+                                == runs["auto"]["tokens"]).mean()),
+         fault_first_step_rel_err_pinned=faults,
+         f32=dict(n_layers=HYBRID_F32_LAYERS, steps=16,
+                  tokens_equal=f32_equal,
+                  last_prefill_rel_err=_rel(f32["explicit"]["last"],
+                                            f32["auto"]["last"])),
+         f32_full_depth=dict(n_layers=cfg32.n_layers,
+                             first_step_rel_err=f32_full_rel,
+                             tol=HYBRID_F32_TOL),
+         temperature=dict(temperature=SAMPLE_TEMPERATURE, seed=SAMPLE_SEED,
+                          graph_equals_eager=True,
+                          ms_per_token=sampled["ms_per_token"],
+                          eager_ms_per_token=sampled["eager"]["ms_per_token"],
+                          draw=draw),
+         plans=runs["explicit"]["plans"],
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         seconds=time.perf_counter() - t0)
+    return _counted(runs["explicit"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12",
                     help="comma-separated phases to run (default 1-6 and "
-                         "8-11; 7 profiles a decode step)")
+                         "8-12; 7 profiles a decode step)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -2872,7 +3428,7 @@ def main(argv=None) -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
-    max_err, launches, timing, coll, moe, prefill, hier = (None,) * 7
+    max_err, launches, timing, coll, moe, prefill, hier, hybrid = (None,) * 8
     if 2 in phases:
         phase_build()
     if 3 in phases:
@@ -2893,14 +3449,17 @@ def main(argv=None) -> int:
         prefill = phase_prefill(device, gen)
     if 11 in phases:
         hier = phase_hierarchical(device, gen)
+    if 12 in phases:
+        hybrid = phase_hybrid(device)
     kernels = []
     if timing is not None:
         # each main path's per-step launch mix at full occupancy (every
         # plan family at its top bucket): qwen3-1.7b's layer AllReduces
         # and embedding, one logits gather; phi3.5-moe's attention
         # AllReduces and embedding, dispatch and combine per layer, one
-        # logits gather. The entry's times are the two paths' means
-        # weighted by their launches (phases 4 and 9, each counted from
+        # logits gather; hymba-1.5b's attention, SSM and MLP AllReduces.
+        # The entry's times are the paths' means
+        # weighted by their launches (phases 4, 9 and 12, each counted from
         # 0: the wrapper's launches over the engine's construction, the
         # warm-up steps and the capture of its graph; the executor
         # kernels that the profiler counted over later replays of that
@@ -2912,9 +3471,12 @@ def main(argv=None) -> int:
                         "logits_allgather": 1},
                  MOE_ARCH: {"layer_allreduce": MOE_LAYERS + 1,
                             "moe_alltoall": 2 * MOE_LAYERS,
-                            "logits_allgather": 1}}
+                            "logits_allgather": 1},
+                 HYBRID_ARCH: {"layer_allreduce":
+                               3 * _hybrid_cfg().n_layers}}
         counted = {ARCH: launches or (None, None, None),
-                   MOE_ARCH: moe[2] if moe else (None, None, None)}
+                   MOE_ARCH: moe[2] if moe else (None, None, None),
+                   HYBRID_ARCH: hybrid or (None, None, None)}
         keys = ("ms", "plain_ms", "bound_ms", "library_ms")
         by_path = {}
         for arch, mix in mixes.items():

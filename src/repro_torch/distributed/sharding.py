@@ -12,6 +12,11 @@ rank axis, and that axis either holds each rank's shard or a replica.
 * MoE experts split whole over the same axis, which then carries expert
   parallelism (axis 1 of the ``(groups, e, d, f)`` leaves ``w_gate``,
   ``w_up``, ``w_down``); the router is replicated;
+* the hybrid family's SSM branch splits on its inner dim ``d_inner``
+  (``w_dt`` axis 2, ``a_log``, ``d_skip`` and ``w_out`` axis 1, the
+  reference's ``_ssm_specs``), while its input projections ``w_in`` and
+  ``w_bcdt`` are replicated: ``(dt, B, C)`` contract over the whole
+  ``d_inner``, so every rank computes them whole;
 * ``wk``/``wv``, the norms and the KV cache are replicated — every rank
   computes the same new K/V token, so the replicated cache stays
   consistent without a gather.
@@ -29,20 +34,23 @@ __all__ = ["explicit_decode_supported", "explicit_decode_params",
 #: TP; leaves not listed are replicated
 SHARD_DIMS = {("attn", "wq"): 2, ("attn", "wo"): 1,
               ("mlp", "w_gate"): 2, ("mlp", "w_up"): 2, ("mlp", "w_down"): 1,
-              ("moe", "w_gate"): 1, ("moe", "w_up"): 1, ("moe", "w_down"): 1}
+              ("moe", "w_gate"): 1, ("moe", "w_up"): 1, ("moe", "w_down"): 1,
+              ("ssm", "w_dt"): 2, ("ssm", "a_log"): 1, ("ssm", "d_skip"): 1,
+              ("ssm", "w_out"): 1}
 
 
 def explicit_decode_supported(cfg: ModelConfig, tp: int) -> tuple[bool, str]:
     """Can the explicit decode step run this config on a TP axis of
-    size ``tp``? The (padded) heads must divide; dense tensor
+    size ``tp``? The (padded) heads must divide; dense and hybrid tensor
     parallelism also needs ``d_ff`` to divide, MoE expert parallelism
-    the expert count (``d_ff`` does not matter: experts stay whole). The
-    hybrid family is not ported yet."""
+    the expert count (``d_ff`` does not matter: experts stay whole), and
+    the hybrid SSM branch its inner dim ``d_model``."""
     if tp <= 1:
         return False, "no TP axis of size > 1: nothing to make explicit"
-    if cfg.family not in ("dense", "moe"):
-        return False, (f"family {cfg.family!r} not ported yet (the port "
-                       f"covers dense TP and MoE expert parallelism)")
+    if cfg.family not in ("dense", "moe", "hybrid"):
+        return False, (f"family {cfg.family!r} not supported (explicit "
+                       f"decode covers dense TP, MoE expert parallelism "
+                       f"and hybrid attention+SSM sharding)")
     nh, _ = padded_heads(cfg)
     if nh % tp != 0:
         return False, f"attention heads {nh} not divisible by TP={tp}"
@@ -53,6 +61,9 @@ def explicit_decode_supported(cfg: ModelConfig, tp: int) -> tuple[bool, str]:
                            f"(TP-in-expert has no explicit path)")
     elif cfg.d_ff % tp != 0:
         return False, f"d_ff {cfg.d_ff} not divisible by TP={tp}"
+    if cfg.family == "hybrid" and cfg.d_model % tp != 0:
+        return False, (f"SSM inner dim d_model {cfg.d_model} not "
+                       f"divisible by TP={tp}")
     return True, ""
 
 

@@ -52,15 +52,15 @@ def compile_decode_plans(cfg: ModelConfig, comm, *, batch_local: int,
                          tp: int, buckets=None) -> dict:
     """The decode-step collective plans, compiled once and replayed every
     generated token: ``layer_allreduce`` over ``(rows, d_model)`` in the
-    model dtype; when the vocab divides the TP axis, ``logits_allgather``
+    model dtype (a hybrid layer replays it for its SSM partial too); when the vocab divides the TP axis, ``logits_allgather``
     over ``(rows, vocab/tp)`` in float32; and for the MoE family with
     experts divisible by the axis, ``moe_alltoall`` — the dispatch and
     combine all_to_all over ``(tp * rows, d_model)``, bucketed over the
     rows per per-rank block ``e_local * ep_capacity(b)`` of each slot
     bucket ``b`` (lossless capacity, so nothing drops)."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
-            f"decode plans for family {cfg.family!r} are not ported yet")
+            f"decode plans for family {cfg.family!r} are not ported")
     buckets = tuple(buckets) if buckets else slot_buckets(batch_local)
     plans = {"layer_allreduce": comm.plan_for(
         "all_reduce", (batch_local, cfg.d_model), cfg.dtype,
@@ -102,6 +102,13 @@ class TPDecodeComms:
     def head_offset(self, nh_local: int) -> torch.Tensor:
         """(tp,) global index of every shard's first query head."""
         return self._ranks * nh_local
+
+    def ssm_offset(self, d_local: int) -> torch.Tensor:
+        """(tp,) global index of every shard's first SSM ``d_inner`` row
+        (hybrid family): the SSM branch runs its recurrence on
+        ``d_local`` rows from there, and :meth:`hidden` completes its
+        out-proj partial."""
+        return self._ranks * d_local
 
     def moe(self, lp, x):
         """Expert-parallel MoE layer on a rank-stacked (tp, b, s,
@@ -177,7 +184,8 @@ def make_serve_step(cfg: ModelConfig, axis: RankAxis, *, batch: int,
 
     ``kv_quant``: the layout's cache is the int8 KV cache with its
     per-token scales; on the explicit path cache and scales are
-    replicated over the ranks, so the int8 cache adds no collective.
+    replicated over the ranks, so the int8 cache adds no collective. A
+    hybrid model's explicit cache holds its SSM state rank-sharded.
     """
     dtype = torch.int8 if kv_quant else None
     if mode == "auto":

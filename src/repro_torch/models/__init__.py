@@ -1,1 +1,1 @@
-"""Model code of the port (dense decode in this slice)."""
+"""Model code of the port: blocks, the SSM head block and the LM."""

@@ -1,11 +1,12 @@
 """The LM behind one functional interface (port of
-``repro.models.transformer``) for the dense, MoE and encoder families:
-seeded init, the full-sequence forward (``forward``, whose attention core
-is the flash-attention kernel on the card) and, for dense and MoE, the
-decode cache and the one-token decode step — unsharded (auto) or on
-rank-stacked TP shards with the per-layer collectives replayed through
-compiled plans (explicit; for MoE the same axis carries expert
-parallelism).
+``repro.models.transformer``) for the dense, MoE, hybrid (attention+SSM)
+and encoder families: seeded init, the full-sequence forward
+(``forward``, whose attention core is the flash-attention kernel on the
+card) and, for dense, MoE and hybrid, the decode cache and the one-token
+decode step — unsharded (auto) or on rank-stacked TP shards with the
+per-layer collectives replayed through compiled plans (explicit; for MoE
+the same axis carries expert parallelism, for hybrid the SSM branch is
+sharded on its inner dim).
 
 Parameter layout is the reference's: ``params["layers"]`` is a list
 (length = period) of per-slot layer dicts whose leaves carry a leading
@@ -14,7 +15,7 @@ layout (``distributed.sharding.explicit_decode_params``) puts a rank
 axis in front of every leaf: ``wq`` ``(groups, d, nh, hd)`` becomes
 ``(tp, groups, d, nh/tp, hd)``. The encoder family (hubert) has a
 forward and no decode, as in the reference's launcher: ``init_cache``
-and ``decode_step`` raise for it. The hybrid and rwkv6 families raise
+and ``decode_step`` raise for it. The rwkv6 family raises
 ``NotImplementedError`` everywhere.
 """
 from __future__ import annotations
@@ -24,15 +25,15 @@ from typing import Optional
 import torch
 
 from repro_torch.mesh import DeviceLike, resolve_device
-from repro_torch.models import blocks
+from repro_torch.models import blocks, ssm
 from repro_torch.models.blocks import rms_norm
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["init_params", "init_cache", "decode_step", "forward",
            "embed_tokens", "logits_fn", "layer_windows", "n_groups"]
 
-FAMILIES = ("dense", "moe", "encoder")
-DECODE_FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "hybrid", "encoder")
+DECODE_FAMILIES = ("dense", "moe", "hybrid")
 
 
 def _check_family(cfg: ModelConfig, families=FAMILIES) -> None:
@@ -81,6 +82,10 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             slot["moe"] = blocks.init_moe(gen, cfg, lead=lead, device=device)
         else:
             slot["mlp"] = blocks.init_mlp(gen, cfg, lead=lead, device=device)
+        if cfg.family == "hybrid":
+            # parallel SSM heads beside attention (Hymba); outputs averaged
+            slot["ssm"] = ssm.init_ssm_head(gen, cfg, d, lead=lead,
+                                            device=device)
         slots.append(slot)
     params = {
         "embed": blocks.init_linear(gen, (cfg.vocab, d), dt, scale=1.0,
@@ -105,7 +110,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_kv: int, *,
     ``dtype=torch.int8`` is the int8 KV cache: ``k_scale``/``v_scale``
     entries hold each token's per-(batch, head) scale, ``(groups, b,
     kv_heads, kv_i, 1)`` in bf16 as in the reference (replicated over
-    ``ranks`` like the cache)."""
+    ``ranks`` like the cache).
+
+    The hybrid family adds ``ssm``: one f32 state ``(groups, b,
+    d_model, state)`` a slot. Under ``ranks`` it is rank-sharded on its
+    inner dim, ``(ranks, groups, b, d_model / ranks, state)``: each
+    rank updates only its rows (the reference's
+    ``explicit_decode_cache_pspecs``)."""
     _check_family(cfg, DECODE_FAMILIES)
     device = resolve_device(device)
     dtype = dtype or cfg.tdtype
@@ -122,13 +133,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_kv: int, *,
     if dtype == torch.int8:
         for name in ("k_scale", "v_scale"):
             cache[name] = [kv(w, 1, torch.bfloat16) for w in wins]
+    if cfg.family == "hybrid":
+        rows = cfg.d_model // ranks if ranks else cfg.d_model
+        cache["ssm"] = [torch.zeros(lead + (n_groups(cfg), batch, rows,
+                                            cfg.ssm.state_dim),
+                                    dtype=torch.float32, device=device)
+                        for _ in wins]
     return cache
 
 
 def _run_layer(p, x, cfg: ModelConfig, win, cos, sin, backend):
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    x = x + blocks.attention(p["attn"], h, cfg, cos, sin, window=win,
-                             backend=backend)
+    att = blocks.attention(p["attn"], h, cfg, cos, sin, window=win,
+                           backend=backend)
+    if cfg.family == "hybrid":
+        s_out, _ = ssm.ssm_forward(p["ssm"], h, cfg)
+        att = (att + s_out) * 0.5
+    x = x + att
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
     if cfg.family == "moe":
         return x + blocks.moe_layer(p["moe"], h, cfg)
@@ -184,21 +205,27 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, comms=None):
     host read and a CUDA graph captures it whole, and the caller keeps it
     in range.
     Returns (logits (b, vocab) f32, cache) — the cache (with an int8
-    cache its ``k_scale``/``v_scale`` too) is updated in place and
-    returned for the reference's calling convention.
+    cache its ``k_scale``/``v_scale`` too, for the hybrid family its SSM
+    state) is updated in place and returned for the reference's calling
+    convention.
 
     ``comms`` — the explicit-TP hook (``distributed.step.TPDecodeComms``):
     params and cache arrive rank-stacked, the per-layer hidden-state
-    partials (attention out-proj, MLP down-proj) are completed by
-    ``comms.hidden`` (a replay of the compiled AllReduce plan), the
+    partials (attention out-proj, MLP down-proj, and the hybrid family's
+    SSM out-proj) are completed by ``comms.hidden`` (a replay of the
+    compiled AllReduce plan), the
     vocab-sharded embedding lookup and the logits go through
     ``comms.embed`` / ``comms.logits``, and attention receives every
     shard's global head offset. A MoE layer runs ``comms.moe`` —
     expert-parallel dispatch and combine through the compiled
     capacity-bucketed all_to_all plan, whose output is complete on
     every rank, so no AllReduce follows it — where the auto path runs
-    the dense oracle ``blocks.moe_layer``. ``comms=None`` is the auto
-    path.
+    the dense oracle ``blocks.moe_layer``. A hybrid layer runs its SSM
+    branch on the rank's ``d_inner`` rows (``comms.ssm_offset``; the
+    state arrives rank-sharded) and completes its out-proj partial with
+    its own replay of the AllReduce plan before averaging it with
+    attention's, so an explicit hybrid layer makes 3 replays.
+    ``comms=None`` is the auto path.
     """
     _check_family(cfg, DECODE_FAMILIES)
     ranked = comms is not None
@@ -229,8 +256,21 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, comms=None):
             att = blocks.decode_attention(lp["attn"], h, ck, cv, pos, cfg,
                                           window=win, head_offset=ho,
                                           k_scale=ks, v_scale=vs)
+            if cfg.family == "hybrid":
+                state = _group(cache["ssm"][i], g, ranked)
+                d_off = (comms.ssm_offset(lp["ssm"]["a_log"].shape[-2])
+                         if ranked else None)
+                s_out, s_new = ssm.ssm_decode_step(lp["ssm"], h, state, cfg,
+                                                   d_offset=d_off)
+                state.copy_(s_new)
+                if ranked:
+                    # its own replay, as in the reference: attention and
+                    # SSM partials complete apart, then average
+                    s_out = comms.hidden(s_out)
             if ranked:
                 att = comms.hidden(att)     # complete the out-proj partial
+            if cfg.family == "hybrid":
+                att = (att + s_out) * 0.5
             x = x + att
             h = rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
             if cfg.family == "moe":

@@ -1,5 +1,8 @@
-"""Batched inference engine: token-by-token prefill + greedy decode over
-a KV cache (port of ``repro.serve.engine``, §5.2 deployment shape).
+"""Batched inference engine: token-by-token prefill + greedy or
+temperature decode over a KV cache (port of ``repro.serve.engine``, §5.2
+deployment shape). A temperature draw follows the reference's key
+stream (``serve.sampling``, a copy of ``jax.random``'s threefry and
+Gumbel sampler), so one seed gives the reference's tokens.
 
 The engine owns a :class:`~repro_torch.core.comm.Communicator` for its
 TP axis and compiles the decode-step collective plans at ``__init__``
@@ -36,6 +39,7 @@ from repro_torch.distributed.step import (capture_serve_step,
 from repro_torch.mesh import DeviceLike, RankAxis
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import layer_windows
+from repro_torch.serve import sampling
 
 __all__ = ["ServeConfig", "Engine"]
 
@@ -168,9 +172,9 @@ class Engine:
         """Per-bucket cost cards + dispatch hit counts of the decode
         plans, and the predicted per-token communication time at full
         occupancy: per layer 2 AllReduces (dense: attention out-proj and
-        MLP down-proj) or 1 AllReduce and 2 all_to_alls (MoE: out-proj,
-        dispatch and combine), the embedding gather-reduce and the
-        logits gather."""
+        MLP down-proj), 3 (hybrid: the SSM out-proj too) or 1 AllReduce
+        and 2 all_to_alls (MoE: out-proj, dispatch and combine), the
+        embedding gather-reduce and the logits gather."""
         def top_plan(p):
             return p.plans[p.buckets[-1]] if isinstance(
                 p, comm_lib.BucketedPlan) else p
@@ -181,7 +185,7 @@ class Engine:
         per_tok = 0.0
         ar = self.decode_plans.get("layer_allreduce")
         if ar is not None:
-            ar_per_layer = 1 if self.cfg.family == "moe" else 2
+            ar_per_layer = {"moe": 1, "hybrid": 3}.get(self.cfg.family, 2)
             per_tok += ar_per_layer * self.cfg.n_layers * \
                 top_plan(ar).estimate_us
             if "logits_allgather" in self.decode_plans:
@@ -212,20 +216,25 @@ class Engine:
         self.active[:] = True
         return logits
 
-    def _sample(self, logits, gen: torch.Generator):
+    def _sample(self, logits, key: sampling.Key):
         if self.scfg.temperature <= 0:
             return torch.argmax(logits, dim=-1)
-        probs = torch.softmax(logits / self.scfg.temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)[:, 0]
+        return sampling.categorical(key, logits / self.scfg.temperature)
 
     def decode(self, first_logits, num_tokens: int, seed: int = 0):
         """Greedy (or temperature) decode for ``num_tokens`` steps;
-        returns (batch, num_tokens) generated ids."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        returns (batch, num_tokens) generated ids. A temperature draw
+        takes the reference's key stream: ``key(seed)``, then each step
+        ``key, sub = split(key)`` and ``categorical(sub, logits / T)``
+        (greedy draws no key)."""
+        key = sampling.key(seed)
         out = []
         logits = first_logits
         for _ in range(num_tokens):
-            tok = self._sample(logits, gen)
+            sub = None
+            if self.scfg.temperature > 0:
+                key, sub = sampling.split(key)
+            tok = self._sample(logits, sub)
             out.append(tok.cpu().numpy())
             self.active &= ~(out[-1] == self.scfg.eos_id)
             logits = self._run_step(tok)

@@ -158,7 +158,7 @@ def test_explicit_replays_not_recompiles():
 
 
 def test_unported_family_raises():
-    cfg = configs.reduced(configs.get_config("hymba-1.5b"))
+    cfg = configs.reduced(configs.get_config("rwkv6-7b"))
     with pytest.raises(NotImplementedError):
         tf.init_params(cfg, device="cpu")
 

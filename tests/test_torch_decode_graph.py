@@ -24,7 +24,7 @@ from repro_torch.serve.engine import Engine, ServeConfig
 torch.set_num_threads(1)
 
 BATCH, MAX_KV, STEPS, TP = 2, 32, 16, 2
-ARCHS = ("qwen3-1.7b", "mixtral-8x22b", "gemma3-12b")
+ARCHS = ("qwen3-1.7b", "mixtral-8x22b", "gemma3-12b", "hymba-1.5b")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 

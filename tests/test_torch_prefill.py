@@ -1,8 +1,8 @@
 """The port's full-sequence forward and prefill step against the
 reference's, on ``reduced()`` qwen3-1.7b, gemma3-12b (window 4, so the
 local layers' window is shorter than the sequence), hubert-xlarge (the
-encoder: bidirectional, float frame inputs), phi3.5-moe and llama3.2-3b
-with padded heads: the reference's own ``init_params`` weights carried
+encoder: bidirectional, float frame inputs), phi3.5-moe, llama3.2-3b
+with padded heads and hymba-1.5b (window 4; attention and the SSM scan): the reference's own ``init_params`` weights carried
 across with ``params_from_jax``, the same seeded inputs, hidden states
 and logits within the f32 tolerance of ``tests/test_torch_decode.py``. Both branches
 of the plain attention core (materialized and KV-chunked) run on both
@@ -44,7 +44,8 @@ RTOL = ATOL = 1e-4
 # from 4 to 8 (the padded heads hard-masked to zero)
 ARCHS = {"qwen3-1.7b": {}, "gemma3-12b": dict(window=4),
          "hubert-xlarge": {}, "phi3.5-moe-42b-a6.6b": {},
-         "llama3.2-3b": dict(pad_heads_to=8)}
+         "llama3.2-3b": dict(pad_heads_to=8),
+         "hymba-1.5b": dict(window=4)}
 
 
 def _cfgs(arch, **extra):
@@ -137,7 +138,7 @@ def test_chunked_attention_matches_reference(arch, monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-12b",
-                                  "phi3.5-moe-42b-a6.6b"])
+                                  "phi3.5-moe-42b-a6.6b", "hymba-1.5b"])
 def test_fused_prefill_matches_token_by_token(arch):
     """The port's own invariant: the fused step's last-position logits
     equal the engine's token-by-token prefill (gemma3's ring buffers of 4
@@ -166,7 +167,7 @@ def test_encoder_runs_forward_and_refuses_decode():
         Engine(cfg, params, ServeConfig(batch=B, max_kv=8), device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["rwkv6-7b"])
 def test_unported_families_refuse_forward(arch):
     cfg = configs.reduced(configs.get_config(arch))
     with pytest.raises(NotImplementedError):
