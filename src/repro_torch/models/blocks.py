@@ -1,8 +1,9 @@
 """Shared model blocks: RMS norm, RoPE, full-sequence GQA attention
-(causal, sliding-window or bidirectional) and GQA decode attention
-(whole-model and per-TP-shard), SwiGLU MLP, the dense-einsum MoE layer
-and their initializers — the port of ``repro.models.blocks`` that the
-forward and dense and MoE decode run.
+(causal, sliding-window or bidirectional), GQA decode attention (a
+position shared by the batch or one a row) and cache-filling prefill
+attention over a chunk (both whole-model and per-TP-shard), SwiGLU MLP,
+the dense-einsum MoE layer and their initializers — the port of
+``repro.models.blocks`` that the forward, decode and fused prefill run.
 
 Every decode function takes plain tensors and accepts optional *leading
 rank dims*: the auto path calls them on one model (``x`` is ``(b, s,
@@ -29,7 +30,7 @@ from repro_torch.kernels import comm_utils
 from repro_torch.kernels.flash_attention import flash_attention
 
 __all__ = ["rms_norm", "rope", "apply_rope", "attention", "decode_attention",
-           "device_position", "mlp_swiglu", "top_k", "moe_layer",
+           "prefill_attention", "device_position", "mlp_swiglu", "top_k", "moe_layer",
            "init_linear", "init_attn", "init_mlp", "init_moe",
            "padded_heads"]
 
@@ -82,27 +83,30 @@ def _rope_table_size(max_pos: int) -> int:
 
 
 def rope(pos, head_dim: int, theta: float, device,
-         max_pos: Optional[int] = None):
+         max_pos: Optional[int] = None, *, on_device: bool = False):
     """Position(s) -> cos/sin rows of the host table: an int ``pos`` or
-    a 0-d tensor gives ``(head_dim/2,)``, a 1-D tensor of positions
-    ``(s,)`` gives ``(s, head_dim/2)``.
+    a 0-d tensor gives ``(head_dim/2,)``, a tensor of positions of shape
+    ``S`` gives ``S + (head_dim/2,)``.
 
-    Int and 1-D positions are read on the host: the table grows to cover
-    them, and a negative one or one past ``max_pos`` raises instead of
-    wrapping. A 0-d tensor is read on the device only, never on the host
-    (the decode step captured in a CUDA graph keeps its position on the
+    Int and tensor positions are read on the host: the table grows to
+    cover them, and a negative one or one past ``max_pos`` raises instead
+    of wrapping. A 0-d tensor, or any tensor with ``on_device=True`` (the
+    scheduler's per-row positions), is read on the device only, never on
+    the host (a step captured in a CUDA graph keeps its positions on the
     card): the table is sized from ``max_pos``, which it then needs, and
-    the caller, which knows the position on the host, keeps it in
+    the caller, which knows the positions on the host, keeps them in
     ``[0, max_pos)``."""
-    if isinstance(pos, torch.Tensor) and pos.dim() == 0:
+    if isinstance(pos, torch.Tensor) and (on_device or pos.dim() == 0):
         if max_pos is None:
             raise ValueError("rope(): a device position needs max_pos to "
                              "size the table")
         cos_t, sin_t = _rope_device_tables(
             head_dim, float(theta), _rope_table_size(int(max_pos)),
             torch.device(device))
-        idx = pos.to(cos_t.device).reshape(1)
-        return cos_t.index_select(0, idx)[0], sin_t.index_select(0, idx)[0]
+        idx = pos.to(cos_t.device).reshape(-1)
+        shape = tuple(pos.shape) + (cos_t.shape[-1],)
+        return (cos_t.index_select(0, idx).reshape(shape),
+                sin_t.index_select(0, idx).reshape(shape))
     if isinstance(pos, torch.Tensor):
         lo, hi = ((int(pos.min()), int(pos.max())) if pos.numel()
                   else (0, 0))
@@ -283,21 +287,50 @@ def _bf16_dot(eq, a, cache):
     return torch.einsum(eq, a.to(torch.bfloat16).float(), cache.float())
 
 
+def _scatter_kv(cache, val, slots, keep):
+    """Write ``val`` ``(…, b, nkv, s, last)`` into ``cache`` in place at
+    each row's KV slots ``slots`` ``(b, s)``: one ``scatter_`` along the
+    KV axis, so a step touches only the entries it writes, never the
+    whole cache. Where ``keep`` ``(b, s)`` is False the entry already in
+    the slot is gathered and written back, so that row passes through bit
+    for bit. The slots of one row must be distinct."""
+    idx = slots[:, None, :, None].expand(val.shape)
+    if keep is not None:
+        val = torch.where(keep[:, None, :, None], val,
+                          cache.gather(-2, idx))
+    cache.scatter_(-2, idx, val)
+
+
+def _write_tokens(cache, scales, val, slots, keep):
+    """:func:`_scatter_kv` of new K or V tokens, quantized per token
+    first for an int8 cache (its scales written alongside)."""
+    if cache.dtype == torch.int8:
+        val, sc = _quantize(val)
+        _scatter_kv(scales, sc.to(scales.dtype), slots, keep)
+    _scatter_kv(cache, val, slots, keep)
+
+
 def decode_attention(p: Params, x, cache_k, cache_v, pos, cfg, *,
                      window: Optional[int], head_offset=None,
-                     k_scale=None, v_scale=None):
-    """One-token decode with a KV cache; the batch shares one position.
+                     k_scale=None, v_scale=None, active=None):
+    """One-token decode with a KV cache.
 
     x: (…, b, 1, d); cache_k/v: (…, b, kv_heads, max_kv, hd), updated IN
     PLACE with the new token (the port writes the cache buffer instead of
     returning a new one). Returns the attention output (…, b, 1, d).
 
-    ``pos``: an int, checked on the host and made a 0-d tensor
-    (:func:`device_position`), or a 0-d integer tensor, read on the device
-    only (the decode step captured in a CUDA graph), which the caller
-    keeps below ``max_kv`` on global layers and below ``cfg.max_seq``.
-    The RoPE row, the cache slot (``pos % max_kv`` on windowed layers) and
-    the validity mask all come from the tensor.
+    ``pos``: the position the batch shares — an int, checked on the host
+    and made a 0-d tensor (:func:`device_position`), or a 0-d integer
+    tensor — or a ``(b,)`` integer tensor of per-row positions (the
+    scheduler's slots, each at its own depth). Tensors are read on the
+    device only (a step captured in a CUDA graph), and the caller keeps
+    them below ``max_kv`` on global layers and below ``cfg.max_seq``.
+    The RoPE row, the cache slot (``pos % max_kv`` on windowed layers)
+    and the validity mask all come from the tensor, row by row for a
+    vector. A vector's new tokens are written with one ``scatter_``
+    along the KV axis; ``active`` (a ``(b,)`` bool tensor, vector
+    positions only) writes each inactive row's old entry back, so its
+    cache row passes through bit for bit.
 
     int8 cache (``cache_k.dtype == torch.int8``): the new token is written
     as ``round(v / s)`` with a per-(batch, head, token) scale ``s`` kept
@@ -313,40 +346,118 @@ def decode_attention(p: Params, x, cache_k, cache_v, pos, cfg, *,
     AllReduce plan completes.
     """
     hd = cfg.hd
-    nh, nkv = padded_heads(cfg)
     max_kv = cache_k.shape[-2]
-    quant = cache_k.dtype == torch.int8
     if not isinstance(pos, torch.Tensor):
         pos = device_position(pos, cfg.max_seq if window is not None
                               else min(cfg.max_seq, max_kv), x.device)
+    vec = pos.dim() == 1
+    if active is not None and not vec:
+        raise ValueError("decode_attention(): active= needs per-row "
+                         "positions")
     q, k_new, v_new = _qkv_proj(p, x, cfg)
-    cos, sin = rope(pos, hd, cfg.rope_theta, x.device, max_pos=cfg.max_seq)
+    cos, sin = rope(pos, hd, cfg.rope_theta, x.device, max_pos=cfg.max_seq,
+                    on_device=True)
+    if vec:
+        # (b, hd/2) -> (b, 1, 1, hd/2): each row rotates at its own pos
+        cos, sin = cos[:, None, None], sin[:, None, None]
     q = apply_rope(q, cos, sin)
     k_new = apply_rope(k_new, cos, sin)
 
     # ring buffer for windowed layers, linear for global ones; the write
     # indexes with the device slot (no host read)
-    slot = (pos % max_kv if window is not None else pos).reshape(1)
-    for cache, scales, val in ((cache_k, k_scale, k_new),
-                               (cache_v, v_scale, v_new)):
-        if quant:
-            val, sc = _quantize(val)
-            scales.index_copy_(scales.dim() - 2, slot, sc.to(scales.dtype))
-        cache.index_copy_(cache.dim() - 2, slot, val)
-    k_pos = torch.arange(max_kv, device=x.device)
-    if window is not None:
-        valid = ((slot - k_pos) % max_kv) < torch.clamp(pos + 1, max=max_kv)
+    slot = pos % max_kv if window is not None else pos
+    if vec:
+        keep = active[:, None] if active is not None else None
+        _write_tokens(cache_k, k_scale, k_new, slot[:, None], keep)
+        _write_tokens(cache_v, v_scale, v_new, slot[:, None], keep)
     else:
-        valid = k_pos <= pos
+        slot = slot.reshape(1)
+        for cache, scales, val in ((cache_k, k_scale, k_new),
+                                   (cache_v, v_scale, v_new)):
+            if cache.dtype == torch.int8:
+                val, sc = _quantize(val)
+                scales.index_copy_(scales.dim() - 2, slot,
+                                   sc.to(scales.dtype))
+            cache.index_copy_(cache.dim() - 2, slot, val)
+    k_pos = torch.arange(max_kv, device=x.device)
+    p_col, s_col = (pos[:, None], slot[:, None]) if vec else (pos, slot)
+    if window is not None:
+        valid = ((s_col - k_pos) % max_kv) < torch.clamp(p_col + 1,
+                                                         max=max_kv)
+    else:
+        valid = k_pos <= p_col
+    # (rows, queries, kv): rows are b for a vector, 1 for a shared pos
+    valid = valid.reshape(-1, 1, max_kv)
+    return _attend(p, q, cache_k, cache_v, valid, cfg,
+                   head_offset=head_offset, k_scale=k_scale,
+                   v_scale=v_scale)
 
+
+def prefill_attention(p: Params, x, cache_k, cache_v, pos, n_tok, cfg, *,
+                      window: Optional[int], head_offset=None,
+                      k_scale=None, v_scale=None):
+    """Cache-filling attention over a prompt chunk of S tokens a row —
+    :func:`decode_attention` over S positions at once, the port of the
+    reference's ``prefill_attention``.
+
+    x: (…, b, S, d) — each row's next chunk, left-aligned; ``pos``: (b,)
+    the position of each row's first chunk token; ``n_tok``: (b,) how
+    many of the S tokens are real. Both are device tensors, read on the
+    device only. Returns (…, b, S, d), updating the cache (and an int8
+    cache's scales, quantized per token as the decode write does) in
+    place; columns past ``n_tok`` write their slot's old entry back, so a
+    row with ``n_tok == 0`` passes through bit for bit, and their outputs
+    are garbage the caller discards.
+
+    Contract on windowed (ring) layers, as in the reference: per row
+    ``n_tok == 1`` or ``pos + n_tok <= kv_len``, and ``S <= kv_len`` —
+    a chunk never overwrites a slot its own queries still read. Slots
+    are ``(pos + j) % kv_len`` on every layer (on a global layer the
+    real columns never wrap), so a row's S slots are distinct and every
+    index lies in the cache. Padded columns take RoPE rows from a table
+    sized ``cfg.max_seq + S``, so their positions stay inside it."""
+    S = x.shape[-2]
+    kv_len = cache_k.shape[-2]
+    q, k_new, v_new = _qkv_proj(p, x, cfg)
+    cols = torch.arange(S, device=x.device)
+    pmat = pos[:, None] + cols                              # (b, S)
+    cos, sin = rope(pmat, cfg.hd, cfg.rope_theta, x.device,
+                    max_pos=cfg.max_seq + S, on_device=True)
+    cos, sin = cos[:, None], sin[:, None]                   # (b, 1, S, hd/2)
+    q = apply_rope(q, cos, sin)
+    k_new = apply_rope(k_new, cos, sin)
+    slots = pmat % kv_len
+    keep = cols < n_tok[:, None]                            # (b, S)
+    _write_tokens(cache_k, k_scale, k_new, slots, keep)
+    _write_tokens(cache_v, v_scale, v_new, slots, keep)
+    k_pos = torch.arange(kv_len, device=x.device)
+    if window is not None:
+        age = (slots[:, :, None] - k_pos) % kv_len
+        valid = age < torch.clamp(pmat + 1, max=kv_len)[:, :, None]
+    else:
+        valid = k_pos <= pmat[:, :, None]                   # (b, S, kv)
+    return _attend(p, q, cache_k, cache_v, valid, cfg,
+                   head_offset=head_offset, k_scale=k_scale,
+                   v_scale=v_scale)
+
+
+def _attend(p: Params, q, cache_k, cache_v, valid, cfg, *, head_offset,
+            k_scale, v_scale):
+    """The attention core of :func:`decode_attention` and
+    :func:`prefill_attention` after the cache write: q (…, b, nh, s, hd)
+    against the whole cache, ``valid`` (b or 1, s, kv) masking each
+    query's keys, then the ``wo`` projection (…, b, s, d)."""
+    hd = cfg.hd
+    nh, nkv = padded_heads(cfg)
     g = nh // nkv
+    quant = cache_k.dtype == torch.int8
     if head_offset is not None:
-        return _decode_attn_tp_shard(p, q, cache_k, cache_v, valid, cfg,
-                                     head_offset=head_offset, g=g,
+        return _decode_attn_tp_shard(p, q, cache_k, cache_v, valid[:, None],
+                                     cfg, head_offset=head_offset, g=g,
                                      k_scale=k_scale, v_scale=v_scale)
     lead = q.shape[:-4]
-    b = q.shape[-4]
-    q = q.reshape(lead + (b, nkv, g, 1, hd))
+    b, s = q.shape[-4], q.shape[-2]
+    q = q.reshape(lead + (b, nkv, g, s, hd))
     eq_k = "...bngsh,...bnth->...bngst"
     eq_v = "...bngst,...bnth->...bngsh"
     if quant:
@@ -356,14 +467,14 @@ def decode_attention(p: Params, x, cache_k, cache_v, pos, cfg, *,
         logits = _bf16_dot(eq_k, q, cache_k) * ks
     else:
         logits = torch.einsum(eq_k, q, cache_k).float()
-    logits = torch.where(valid, logits * hd ** -0.5, _MASKED)
+    logits = torch.where(valid[:, None, None], logits * hd ** -0.5, _MASKED)
     if quant:
-        out = _bf16_dot(eq_v, _softmax(logits) * vs, cache_v).to(x.dtype)
+        out = _bf16_dot(eq_v, _softmax(logits) * vs, cache_v).to(q.dtype)
     else:
-        out = torch.einsum(eq_v, _softmax(logits).to(x.dtype), cache_v)
-    out = out.reshape(lead + (b, nh, 1, hd))
+        out = torch.einsum(eq_v, _softmax(logits).to(q.dtype), cache_v)
+    out = out.reshape(lead + (b, nh, s, hd))
     if nh > cfg.n_heads:
-        head_mask = (torch.arange(nh, device=x.device) < cfg.n_heads)
+        head_mask = (torch.arange(nh, device=q.device) < cfg.n_heads)
         out = out * head_mask.to(out.dtype)[:, None, None]
     return torch.einsum("...bnsh,...nhd->...bsd", out, p["wo"])
 
@@ -371,10 +482,13 @@ def decode_attention(p: Params, x, cache_k, cache_v, pos, cfg, *,
 def _decode_attn_tp_shard(p: Params, q, cache_k, cache_v, valid, cfg, *,
                           head_offset, g: int, k_scale=None, v_scale=None):
     """Per-shard attention of the explicit-TP path on rank-stacked
-    tensors: q (tp, b, nh_local, 1, hd) holds every rank's heads; each
-    head attends to its own KV head of the replicated cache through a
-    gather (with an int8 cache, its scales gathered alongside), and the
-    ``wo`` projection over the local heads is a partial sum."""
+    tensors, for decode and for a prefill chunk alike (the reference's
+    ``_decode_attn_tp_shard`` and ``_prefill_attn_tp_shard``): q (tp, b,
+    nh_local, s, hd) holds every rank's heads; each head attends to its
+    own KV head of the replicated cache through a gather (with an int8
+    cache, its scales gathered alongside), ``valid`` (b or 1, 1, s, kv)
+    masks each query's keys, and the ``wo`` projection over the local
+    heads is a partial sum."""
     tp, _, nh_l, _, hd = q.shape
     hid = head_offset[:, None] + torch.arange(nh_l, device=q.device)
     ranks = torch.arange(tp, device=q.device)[:, None]

@@ -12,8 +12,10 @@ is ``(b, s, d)``), the explicit-TP decode path on rank-stacked shards
 The reference's ``associative_scan`` becomes a log-depth Hillis–Steele
 scan over the sequence on whole tensors (no Python loop over positions):
 the same ``combine``, folded in another order, so the two agree within
-f32 rounding. The fused-prefill scan (``ssm_prefill_scan``) is not
-ported: the port has no fused prefill step.
+f32 rounding. The fused-prefill scan (:func:`ssm_prefill_scan`) is the
+reference's per-token recurrence over a chunk instead: each step is
+:func:`ssm_decode_step`, so it matches token-by-token decode by
+construction.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.models.blocks import _lift, init_linear
 
 __all__ = ["init_ssm_head", "init_ssm_state", "ssm_params", "scan",
-           "ssm_forward", "ssm_decode_step"]
+           "ssm_forward", "ssm_decode_step", "ssm_prefill_scan"]
 
 Params = dict
 
@@ -169,3 +171,22 @@ def ssm_decode_step(p: Params, x, state, cfg, *,
     y = _gate(y, xin[..., 0, :], z[..., 0, :], p)
     out = _proj(y.to(x.dtype)[..., None, :], p["w_out"])
     return out, h
+
+
+def ssm_prefill_scan(p: Params, x, state, cfg, n_tok, *,
+                     d_offset: Optional[torch.Tensor] = None):
+    """Fused-prefill SSM: :func:`ssm_decode_step` over a chunk, position
+    by position. x: (..., b, S, d_model); state: (..., b, d_inner, st);
+    ``n_tok``: (b,) real positions a row. Returns (out (..., b, S,
+    d_model), new state): ``out[..., j, :]`` is what the decode step
+    gives at position j, and a row's state advances only through ``j <
+    n_tok`` (a row with ``n_tok == 0`` keeps its state bit for bit).
+    ``d_offset`` is the explicit-TP path, as in the decode step."""
+    S = x.shape[-2]
+    h, outs = state, []
+    for j in range(S):
+        out, h_new = ssm_decode_step(p, x[..., j:j + 1, :], h, cfg,
+                                     d_offset=d_offset)
+        h = torch.where((j < n_tok)[:, None, None], h_new, h)
+        outs.append(out)
+    return torch.cat(outs, dim=-2), h

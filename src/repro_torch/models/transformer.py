@@ -2,8 +2,9 @@
 ``repro.models.transformer``) for the dense, MoE, hybrid (attention+SSM)
 and encoder families: seeded init, the full-sequence forward
 (``forward``, whose attention core is the flash-attention kernel on the
-card) and, for dense, MoE and hybrid, the decode cache and the one-token
-decode step — unsharded (auto) or on rank-stacked TP shards with the
+card) and, for dense, MoE and hybrid, the decode cache, the one-token
+decode step (a position shared by the batch or one a row) and the
+cache-filling fused prefill step — unsharded (auto) or on rank-stacked TP shards with the
 per-layer collectives replayed through compiled plans (explicit; for MoE
 the same axis carries expert parallelism, for hybrid the SSM branch is
 sharded on its inner dim).
@@ -29,8 +30,9 @@ from repro_torch.models import blocks, ssm
 from repro_torch.models.blocks import rms_norm
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["init_params", "init_cache", "decode_step", "forward",
-           "embed_tokens", "logits_fn", "layer_windows", "n_groups"]
+__all__ = ["init_params", "init_cache", "decode_step", "prefill_step",
+           "forward", "embed_tokens", "logits_fn", "layer_windows",
+           "n_groups"]
 
 FAMILIES = ("dense", "moe", "hybrid", "encoder")
 DECODE_FAMILIES = ("dense", "moe", "hybrid")
@@ -197,13 +199,72 @@ def _group(tree, g: int, ranked: bool):
     return tree[:, g] if ranked else tree[g]
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, comms=None):
+def _cached_layers(params, cfg: ModelConfig, cache, x, comms, attend,
+                   ssm_step):
+    """The layer loop of :func:`decode_step` and :func:`prefill_step` on
+    ``x`` (…, b, s, d): ``attend(p, h, cache_k, cache_v, window,
+    head_offset, k_scale, v_scale)`` is the layer's cache-writing
+    attention, ``ssm_step(p, h, state, d_offset) -> (out, new_state)``
+    the hybrid family's SSM branch, whose state is written back with
+    ``copy_``. See :func:`decode_step` for ``comms``."""
+    ranked = comms is not None
+    for g in range(n_groups(cfg)):
+        for i, win in enumerate(layer_windows(cfg)):
+            lp = _group(params["layers"][i], g, ranked)
+            ck, cv, ks, vs = (
+                (_group(cache[name][i], g, ranked) if name in cache
+                 else None)
+                for name in ("k", "v", "k_scale", "v_scale"))
+            h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+            ho = (comms.head_offset(lp["attn"]["wq"].shape[-2])
+                  if ranked else None)
+            att = attend(lp["attn"], h, ck, cv, win, ho, ks, vs)
+            if cfg.family == "hybrid":
+                state = _group(cache["ssm"][i], g, ranked)
+                d_off = (comms.ssm_offset(lp["ssm"]["a_log"].shape[-2])
+                         if ranked else None)
+                s_out, s_new = ssm_step(lp["ssm"], h, state, d_off)
+                state.copy_(s_new)
+                if ranked:
+                    # its own replay, as in the reference: attention and
+                    # SSM partials complete apart, then average
+                    s_out = comms.hidden(s_out)
+            if ranked:
+                att = comms.hidden(att)     # complete the out-proj partial
+            if cfg.family == "hybrid":
+                att = (att + s_out) * 0.5
+            x = x + att
+            h = rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
+            if cfg.family == "moe":
+                mlp_out = (comms.moe(lp["moe"], h) if ranked
+                           else blocks.moe_layer(lp["moe"], h, cfg))
+            else:
+                mlp_out = blocks.mlp_swiglu(lp["mlp"], h)
+                if ranked:
+                    mlp_out = comms.hidden(mlp_out)   # down-proj partial
+            x = x + mlp_out
+    return x
+
+
+def _check_explicit_moe(cfg: ModelConfig, comms) -> None:
+    if comms is not None and cfg.family == "moe" and comms.moe_plan is None:
+        raise NotImplementedError(
+            "explicit MoE decode needs a compiled 'moe_alltoall' plan "
+            "(experts divisible by the TP axis); without one the family "
+            "stays on auto")
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, comms=None,
+                active=None):
     """tokens: (b,) int; pos: the position the batch shares, an int or a
-    0-d integer tensor. An int is checked on the host (below
-    ``cfg.max_seq`` and a global layer's cache length) and becomes a 0-d
-    tensor; a tensor is read on the device only, so the step holds no
-    host read and a CUDA graph captures it whole, and the caller keeps it
-    in range.
+    0-d integer tensor, or a ``(b,)`` integer tensor of per-row
+    positions (the scheduler's slots). An int is checked on the host
+    (below ``cfg.max_seq`` and a global layer's cache length) and becomes
+    a 0-d tensor; a tensor is read on the device only, so the step holds
+    no host read and a CUDA graph captures it whole, and the caller keeps
+    it in range. ``active`` (with per-row positions): a ``(b,)`` bool
+    tensor; an inactive row's cache row and SSM state pass through the
+    step bit for bit (its logits row is computed and meaningless).
     Returns (logits (b, vocab) f32, cache) — the cache (with an int8
     cache its ``k_scale``/``v_scale`` too, for the hybrid family its SSM
     state) is updated in place and returned for the reference's calling
@@ -228,60 +289,73 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, comms=None):
     ``comms=None`` is the auto path.
     """
     _check_family(cfg, DECODE_FAMILIES)
-    ranked = comms is not None
-    if ranked and cfg.family == "moe" and comms.moe_plan is None:
-        raise NotImplementedError(
-            "explicit MoE decode needs a compiled 'moe_alltoall' plan "
-            "(experts divisible by the TP axis); without one the family "
-            "stays on auto")
-    wins = layer_windows(cfg)
+    _check_explicit_moe(cfg, comms)
     if not isinstance(pos, torch.Tensor):
+        wins = layer_windows(cfg)
         limit = min([cfg.max_seq] + [c.shape[-2] for c, w
                                      in zip(cache["k"], wins) if w is None])
         pos = blocks.device_position(pos, limit, tokens.device)
+    ranked = comms is not None
     if ranked:
         x = comms.embed(params["embed"], tokens)[..., None, :]
     else:
         x = params["embed"][tokens][:, None]              # (b, 1, d)
-    for g in range(n_groups(cfg)):
-        for i, win in enumerate(wins):
-            lp = _group(params["layers"][i], g, ranked)
-            ck, cv, ks, vs = (
-                (_group(cache[name][i], g, ranked) if name in cache
-                 else None)
-                for name in ("k", "v", "k_scale", "v_scale"))
-            h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-            ho = (comms.head_offset(lp["attn"]["wq"].shape[-2])
-                  if ranked else None)
-            att = blocks.decode_attention(lp["attn"], h, ck, cv, pos, cfg,
-                                          window=win, head_offset=ho,
-                                          k_scale=ks, v_scale=vs)
-            if cfg.family == "hybrid":
-                state = _group(cache["ssm"][i], g, ranked)
-                d_off = (comms.ssm_offset(lp["ssm"]["a_log"].shape[-2])
-                         if ranked else None)
-                s_out, s_new = ssm.ssm_decode_step(lp["ssm"], h, state, cfg,
-                                                   d_offset=d_off)
-                state.copy_(s_new)
-                if ranked:
-                    # its own replay, as in the reference: attention and
-                    # SSM partials complete apart, then average
-                    s_out = comms.hidden(s_out)
-            if ranked:
-                att = comms.hidden(att)     # complete the out-proj partial
-            if cfg.family == "hybrid":
-                att = (att + s_out) * 0.5
-            x = x + att
-            h = rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-            if cfg.family == "moe":
-                mlp_out = (comms.moe(lp["moe"], h) if ranked
-                           else blocks.moe_layer(lp["moe"], h, cfg))
-            else:
-                mlp_out = blocks.mlp_swiglu(lp["mlp"], h)
-                if ranked:
-                    mlp_out = comms.hidden(mlp_out)   # down-proj partial
-            x = x + mlp_out
+
+    def attend(p, h, ck, cv, win, ho, ks, vs):
+        return blocks.decode_attention(p, h, ck, cv, pos, cfg, window=win,
+                                       head_offset=ho, k_scale=ks,
+                                       v_scale=vs, active=active)
+
+    def ssm_step(p, h, state, d_off):
+        out, new = ssm.ssm_decode_step(p, h, state, cfg, d_offset=d_off)
+        if active is not None:
+            new = torch.where(active[:, None, None], new, state)
+        return out, new
+
+    x = _cached_layers(params, cfg, cache, x, comms, attend, ssm_step)
     h = rms_norm(x, params["ln_f"], cfg.norm_eps)
     if ranked:
         return comms.logits(params, h), cache
     return logits_fn(params, cfg, h)[:, 0], cache
+
+
+def prefill_step(params, cfg: ModelConfig, cache, tokens, pos, n_tok, *,
+                 comms=None):
+    """Fused prefill: advance every row's cache by a prompt chunk in one
+    step, as :func:`decode_step` would one token at a time (the port of
+    the reference's ``prefill_step``).
+
+    tokens: (b, S) int — each row's next chunk, left-aligned (padding
+    past a row's count is any token); pos: (b,) the position of each
+    row's first chunk token; n_tok: (b,) how many of the S tokens are
+    real (0: the row's cache and SSM state pass through bit for bit).
+    ``pos`` and ``n_tok`` are device tensors, read on the device only.
+    Returns the cache, updated in place; no logits (the scheduler runs a
+    row's last prompt token through the decode step). ``comms`` is the
+    explicit-TP hook, as in :func:`decode_step`: every partial completes
+    through the AllReduce plan at ``b·S`` rows. On windowed layers each
+    row needs ``n_tok == 1`` or ``pos + n_tok <= kv_len``
+    (:func:`blocks.prefill_attention`). The rwkv6 and encoder families
+    have no fused prefill."""
+    if cfg.family not in DECODE_FAMILIES:
+        raise NotImplementedError(
+            f"fused prefill covers the dense, MoE and hybrid families; "
+            f"{cfg.family!r} has none")
+    _check_explicit_moe(cfg, comms)
+    b, S = tokens.shape
+    if comms is not None:
+        x = comms.embed(params["embed"], tokens.reshape(-1)).unflatten(
+            -2, (b, S))
+    else:
+        x = params["embed"][tokens]                       # (b, S, d)
+
+    def attend(p, h, ck, cv, win, ho, ks, vs):
+        return blocks.prefill_attention(p, h, ck, cv, pos, n_tok, cfg,
+                                        window=win, head_offset=ho,
+                                        k_scale=ks, v_scale=vs)
+
+    def ssm_step(p, h, state, d_off):
+        return ssm.ssm_prefill_scan(p, h, state, cfg, n_tok, d_offset=d_off)
+
+    _cached_layers(params, cfg, cache, x, comms, attend, ssm_step)
+    return cache

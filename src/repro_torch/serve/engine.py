@@ -14,12 +14,15 @@ the compile counters stay flat across decode calls;
 ``mode="auto"`` runs the unsharded model and keeps the plans as the
 cost/inspection artifact.
 
-On the card the engine captures its one-token step once, at
-``__init__``, in one CUDA graph (:func:`~repro_torch.distributed.step.
-capture_serve_step`), and every token replays it in both modes: the
-position lives on the card and the executor kernel keeps its flag epoch
-there, so nothing of the step is dispatched from Python. On the CPU the
-same step runs eagerly on the same 0-d position tensor.
+On the card the engine captures its one-token step once, at its first
+step (or :meth:`Engine.capture`), in one CUDA graph
+(:func:`~repro_torch.distributed.step.capture_serve_step`), and every
+token replays it in both modes: the position lives on the card and the
+executor kernel keeps its flag epoch there, so nothing of the step is
+dispatched from Python. On the CPU the same step runs eagerly on the
+same 0-d position tensor. An engine that a
+:class:`~repro_torch.serve.scheduler.Scheduler` serves from lends it its
+cache and never steps (or captures) itself.
 
 The reference's fallback ladder (retry, watchdog, explicit -> auto) is
 not ported in this slice: a failure on the explicit path raises.
@@ -45,9 +48,11 @@ __all__ = ["ServeConfig", "Engine"]
 
 
 def _check_plan_set(cfg: ModelConfig, plans: dict, *, tp: int,
-                    batch_local: int) -> None:
+                    batch_local: int, seq_buckets=None) -> None:
     """Validate a loaded decode-plan set against this engine's config
-    and axis; raises ValueError naming the mismatch."""
+    and axis; raises ValueError naming the mismatch. ``seq_buckets``:
+    the fused-prefill sequence buckets the engine serves, each of which
+    needs its ``batch_local * s`` row bucket in ``layer_allreduce``."""
     if tp <= 1:
         raise ValueError("decode plans need a TP axis of size > 1")
     ar = plans.get("layer_allreduce")
@@ -71,6 +76,17 @@ def _check_plan_set(cfg: ModelConfig, plans: dict, *, tp: int,
         raise ValueError(f"layer_allreduce top bucket {top} < local batch "
                          f"{batch_local}: re-export the set with the "
                          f"serving batch")
+    ladder = (ar.buckets if isinstance(ar, comm_lib.BucketedPlan)
+              else (ar.shape[0],))
+    for s in (seq_buckets or ()):
+        need = batch_local * int(s)
+        if need not in ladder:
+            raise ValueError(
+                f"layer_allreduce ladder {tuple(ladder)} is missing the "
+                f"{need}-row bucket for prefill sequence bucket {s} "
+                f"(batch_local={batch_local}): re-export the plan set with "
+                f"compile_decode_plans(..., seq_buckets="
+                f"{tuple(seq_buckets)})")
     if cfg.vocab % tp == 0 and "logits_allgather" not in plans:
         raise ValueError("plan set missing 'logits_allgather' for the "
                          "vocab-sharded logits path")
@@ -89,6 +105,9 @@ class ServeConfig:
     mode: str = "auto"             # 'auto' | 'explicit' (plan replay)
     verify: str = "strict"         # plan verification: 'off'|'warn'|'strict'
     kv_quant: bool = False         # int8 KV cache with per-token scales
+    # fused-prefill sequence buckets (prompt-chunk lengths the scheduler
+    # prefills in one micro-step); None: token-by-token prefill plans only
+    prefill_seq_buckets: Optional[tuple] = None
 
 
 class Engine:
@@ -98,12 +117,15 @@ class Engine:
     stacked on ``device`` (default: the CUDA card — raises where there is
     none; pass ``device="cpu"`` for the plain path).
 
-    On the card ``__init__`` captures the step in a CUDA graph
+    On the card the first step captures the step in a CUDA graph
     (``self.graph``, a :class:`~repro_torch.distributed.step.
-    CapturedStep`) and raises if the capture fails. The plans' ``hits``
-    then count the capture's warm-up steps and the capture itself, not
-    the replays, as the reference's count traces its step under
-    ``jax.jit``."""
+    CapturedStep`; :meth:`capture` does it ahead) and raises if the
+    capture fails. The plans' ``hits`` then count the capture's warm-up
+    steps and the capture itself, not the replays, as the reference's
+    count traces its step under ``jax.jit``. A
+    :class:`~repro_torch.serve.scheduler.Scheduler` built on the engine
+    serves from the engine's cache; from then on the engine's own steps
+    raise."""
 
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig, *,
                  tp: int = 1, device: DeviceLike = None,
@@ -117,16 +139,25 @@ class Engine:
         self.mode = mode if mode is not None else serve_cfg.mode
         if self.mode not in ("auto", "explicit"):
             raise ValueError(f"unknown serve mode {self.mode!r}")
+        #: the mode serving was configured for; the port raises where the
+        #: reference would fall back, so ``mode`` never leaves it
+        self.requested_mode = self.mode
+        #: the reference's runtime guardrail counters; no guardrail is
+        #: ported, so they stay at 0 (the router sums them)
+        self.health = {"retries": 0, "fallbacks": 0, "faults_detected": 0,
+                       "timeouts": 0}
         self.comm = comm if comm is not None else comm_lib.Communicator(
             self.axis.name, n=tp, device=self.device,
             verify=serve_cfg.verify)
         if decode_plans is not None:
             _check_plan_set(cfg, decode_plans, tp=tp,
-                            batch_local=serve_cfg.batch)
+                            batch_local=serve_cfg.batch,
+                            seq_buckets=serve_cfg.prefill_seq_buckets)
             self.decode_plans = dict(decode_plans)
         elif tp > 1:
             self.decode_plans = compile_decode_plans(
-                cfg, self.comm, batch_local=serve_cfg.batch, tp=tp)
+                cfg, self.comm, batch_local=serve_cfg.batch, tp=tp,
+                seq_buckets=serve_cfg.prefill_seq_buckets)
         else:
             self.decode_plans = {}
         kw = (dict(comm=self.comm, plans=self.decode_plans)
@@ -142,10 +173,16 @@ class Engine:
         self._global_layers = None in layer_windows(cfg)
         self.graph = None
         self._step = self._eager
-        if self.device.type == "cuda":
+        #: a weak reference to the Scheduler serving from ``cache``
+        self.scheduler = None
+
+    def capture(self) -> None:
+        """On the card, capture the step in its CUDA graph (once; the
+        warm-up steps run on the cache, which is zeroed after them)."""
+        if self.graph is None and self.device.type == "cuda":
             self.graph = capture_serve_step(
                 self.step_fn, self.params, self.cache,
-                batch=serve_cfg.batch, device=self.device)
+                batch=self.scfg.batch, device=self.device)
             self._step = self.graph.run
 
     def _eager(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
@@ -157,6 +194,11 @@ class Engine:
         return logits
 
     def _run_step(self, tokens: torch.Tensor):
+        if self.scheduler is not None and self.scheduler() is not None:
+            raise RuntimeError(
+                "a Scheduler serves from this engine's cache: step the "
+                "scheduler, not the engine")
+        self.capture()
         # the graph cannot bounds-check its position: the host does (a
         # global layer's cache ends at max_kv, a windowed one wraps)
         if self.pos >= self.cfg.max_seq or (
@@ -196,10 +238,11 @@ class Engine:
         a2a = self.decode_plans.get("moe_alltoall")
         if a2a is not None:
             per_tok += 2 * self.cfg.n_layers * top_plan(a2a).estimate_us
-        return dict(mode=self.mode, plans=cards,
+        health = dict(self.health, **self.comm.health)
+        return dict(mode=self.mode, requested_mode=self.requested_mode,
+                    degraded=self.mode != self.requested_mode, plans=cards,
                     predicted_comm_us_per_token=round(per_tok, 2),
-                    health=dict(self.comm.health),
-                    communicator=repr(self.comm))
+                    health=health, communicator=repr(self.comm))
 
     # -- prefill: feed prompts token by token through the decode path ------
     def prefill(self, prompts: np.ndarray):
