@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 1,2,11 # build, then 2PH and AllGather-matmul
     python3 chip_smoke.py --phases 1,2,12 # build, then hymba-1.5b served
     python3 chip_smoke.py --phases 1,2,13 # build, then the serving stack
+    python3 chip_smoke.py --phases 1,2,14 # build, then the API and traces
 
 Phases, each printing one JSON line (any failure raises, exit != 0):
 
@@ -21,7 +22,8 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    with no cooperative launch in its source (ptxas's registers per 1PA
    kernel beside them);
 3. kernel vs plain — the DSL-executor kernel against ``TorchExecutor``
-   on the card, bit-equal in f32 and bf16, over every registry entry ×
+   on the card, bit-equal in f32, bf16 and int32, over every registry
+   entry ×
    n in {2, 4, 8} × O0-O3 at three sizes (the last several blocks a rank
    with a ragged last tile), and the decode plans of qwen3-1.7b, of
    phi3.5-moe (its ``moe_alltoall`` among them) and of hymba-1.5b at TP
@@ -216,6 +218,42 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    prefill step by (b, S), the temperature draw's ms a tick, the prefix
    hit rate and micro-steps warm and cold, the busy share over a window
    of ticks, and the peak device memory.
+
+14. the collective API and its tuning loop — (a) every
+   ``repro_torch.core.api`` collective (all_reduce, all_gather,
+   reduce_scatter, all_to_all, broadcast) at n in {2, 4, 8}, 1 KiB,
+   256 KiB and 16 MiB a rank, f32, bf16 and int32, on the executor
+   kernel bit-equal to ``backend="torch"`` on the card; a repeated call
+   a plan hit with exactly one executor launch; ``torch_native`` equal
+   (int32, the moving collectives) or within the fold bound (two folds'
+   rounding, half an ulp an add), its device µs beside the plan's at n =
+   4; (b) ``api.tree_all_reduce`` over qwen3-1.7b's whole parameter tree
+   (bf16, 4 ranks stacked, seeded random leaves): one executor launch,
+   every leaf within the fold bound of its f32 sum and equal on every
+   rank, at 4 layers bit-equal to the plain version, its device ms beside
+   its HBM bound and ``torch_native``'s, and the peak memory; (c) every
+   registry candidate of all_reduce, all_gather and reduce_scatter at n
+   = 4, O0 and O2, bf16, 4 KiB / 64 KiB / 1 MiB / 16 MiB a rank, traced
+   on the card (``ExecutionPlan.capture_trace``: the executor kernel's
+   traced instantiation stamps every op of every block): traced output
+   bit-equal to the untraced, every event complete >= issue, every
+   block's stamps forward, no wait ending more than one tick of
+   ``%globaltimer`` before its puts; the timer's tick and the SM clock
+   printed, and which of ``%globaltimer`` and ``clock64()`` each trace
+   used; untraced and traced device µs by CUDA events; (d)
+   ``selector.fit_from_traces`` over the three smaller sizes: the
+   card's ``LinkModel`` (a degenerate fit fails the phase), each 16 MiB
+   trace replayed under it and every other candidate predicted from it
+   (``simulate.whatif``) beside its measured µs (reported, not gated);
+   (e) at qwen3-1.7b's ``layer_allreduce`` and ``logits_allgather``,
+   phi3.5-moe's top ``moe_alltoall`` bucket, hymba-1.5b's AllReduce and
+   (c)'s points, the algorithm ``choose`` picks under ``UNFITTED``, under
+   the fitted link, by ``TuningTable.from_traces`` (O2 traces), and the
+   fastest candidate by CUDA events; (f) qwen3-1.7b explicit at full
+   width, 4 layers, ``ServeConfig(trace=True)`` against ``trace=False``:
+   a device trace for every plan in ``plan_report()["trace"]``, recorded
+   at the warm-up steps before the capture; each graph holding only
+   untraced executor nodes, each cooperative; tokens equal.
 
 The last lines are the card's nvidia-smi line, one ``{"kernels": [...]}``
 JSON object, and ``{"ok": true, "device": {...}}``. The whole record,
@@ -435,6 +473,20 @@ SERVE_REPLAYS, SERVE_PROFILED = 20, 2
 # ticks of trace A's explicit run under the profiler (busy share)
 SERVE_PROFILE_WINDOW = (40, 12)
 
+# phase 14: the collective API and its tuning loop
+API_N = (2, 4, 8)
+API_SIZES = (1 << 10, 256 << 10, 16 << 20)         # bytes a rank
+API_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+API_COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter",
+                   "all_to_all", "broadcast")
+API_COLS = 256
+API_TIME_ITERS = 20
+TREE_TIME_ITERS = 3
+TRACE_COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter")
+TRACE_SIZES = (4 << 10, 64 << 10, 1 << 20, 16 << 20)   # bytes a rank, bf16
+TRACE_COLS = 512
+TRACE_TIME_ITERS = 20
+
 RECORD: dict = {}
 
 
@@ -651,9 +703,10 @@ def phase_kernel_vs_plain(device, gen):
                 # (37, 1003): several blocks a rank, the last tile ragged
                 # (37111 elements a chunk, not a multiple of 8 nb)
                 for rows, cols in ((2, 40), (1, 13), (37, 1003)):
-                    for dtype in (torch.float32, torch.bfloat16):
-                        x = torch.randn(n, n_in * rows, cols, generator=gen,
-                                        device=device).to(dtype)
+                    for dtype in (torch.float32, torch.bfloat16,
+                                  torch.int32):
+                        x = _api_input((n, n_in * rows, cols), dtype, gen,
+                                       device)
                         got, want = kern(x), plain(x)
                         torch.cuda.synchronize()
                         max_err = max(max_err, (got.float() - want.float())
@@ -731,9 +784,10 @@ def _plans_graph_replay(device, gen, families):
                 graph = torch.cuda.CUDAGraph(keep_graph=True)
                 with torch.cuda.graph(graph):
                     y = kern(x)
-                nodes, coop = graph_nodes(graph)
-                check(nodes == coop == 1, f"{arch} {pname} tp={tp} rows={b} "
-                      f"{dtype}: {nodes} executor nodes, {coop} cooperative")
+                nodes, coop, traced = graph_nodes(graph)
+                check(nodes == coop == 1 and traced == 0,
+                      f"{arch} {pname} tp={tp} rows={b} {dtype}: {nodes} "
+                      f"executor nodes, {coop} cooperative, {traced} traced")
                 graph.instantiate()
                 captures += 1
                 for i in range(GRAPH_REPLAYS):
@@ -4211,11 +4265,451 @@ def phase_serve(device, gen):
     return a
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the collective API and its tuning loop
+# ---------------------------------------------------------------------------
+def _api_shape(collective, n, nbytes, esize):
+    """A rank-stacked input of ``nbytes`` a rank: 256 columns (fewer for a
+    block collective's 1 KiB), n row blocks for reduce_scatter and
+    all_to_all."""
+    elems = nbytes // esize
+    per = n if collective in ("reduce_scatter", "all_to_all") else 1
+    cols = min(API_COLS, elems // per)
+    return (n, elems // cols, cols)
+
+
+def _api_input(shape, dtype, gen, device):
+    x = torch.randn(shape, generator=gen, device=device)
+    return (x * 1000).to(dtype) if dtype == torch.int32 else x.to(dtype)
+
+
+def _fold_bound(x, dtype) -> float:
+    """How far two left-to-right folds of x's ranks in different orders
+    (or one fold and torch's sum) can part: a rounding of at most half an
+    ulp at each of the n - 1 adds of the partial sums, bounded by the sum
+    of |x| over the ranks."""
+    eps = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -24}[dtype]
+    acc = x[0].float().abs()
+    for r in range(1, x.shape[0]):          # rank by rank: one rank in f32
+        acc += x[r].float().abs()
+    return (x.shape[0] - 1) * eps * acc.max().item() * 2
+
+
+def _api_calls(device, gen):
+    """(a): every collective of ``api`` at each n, size and type on the
+    executor kernel, bit-equal to ``backend="torch"`` on the card; a
+    repeated call a plan hit with one executor launch; ``torch_native``
+    within the fold bound (int32 and the moving collectives exactly),
+    with its device µs beside the plan's at n = 4."""
+    from repro_torch.core import api, comm
+    from repro_torch.core.executor import CudaExecutor
+    comm.reset_default_communicators()
+    c = api.communicator("model")
+    cases, rows = 0, []
+    for n in API_N:
+        for nbytes in API_SIZES:
+            for dtype in API_DTYPES:
+                for coll in API_COLLECTIVES:
+                    esize = torch.empty((), dtype=dtype).element_size()
+                    x = _api_input(_api_shape(coll, n, nbytes, esize), dtype,
+                                   gen, device)
+                    call = functools.partial(
+                        getattr(api, coll), x, "model",
+                        **({"root": n - 1} if coll == "broadcast" else {}))
+                    got, want = call(), call(backend="torch")
+                    label = f"api.{coll} n={n} {nbytes} B {dtype}"
+                    check(torch.equal(got, want), f"{label}: kernel != plain")
+                    hits, launches = c.stats["hits"], CudaExecutor.launches
+                    again = call()
+                    check(c.stats["hits"] == hits + 1
+                          and CudaExecutor.launches == launches + 1,
+                          f"{label}: a repeated call made "
+                          f"{CudaExecutor.launches - launches} launches, "
+                          f"{c.stats['hits'] - hits} hits")
+                    check(torch.equal(again, want), f"{label}: replay")
+                    native = call(backend="torch_native")
+                    if dtype == torch.int32 or coll in (
+                            "all_gather", "all_to_all", "broadcast"):
+                        check(torch.equal(native, want),
+                              f"{label}: torch_native != plan")
+                        err, bound = 0.0, 0.0
+                    else:
+                        err = (native.float() - want.float()).abs().max()\
+                            .item()
+                        bound = _fold_bound(x, dtype)
+                        check(err <= bound, f"{label}: torch_native parts "
+                              f"from the plan by {err} > {bound}")
+                    cases += 1
+                    if n == TP:
+                        plan = c.compile(coll, tuple(x.shape[1:]), dtype,
+                                         n=n, device=device, root=n - 1)
+                        ms, cov = device_ms(call, API_TIME_ITERS)
+                        nat_ms, nat_cov = device_ms(
+                            lambda: call(backend="torch_native")
+                            .contiguous(), API_TIME_ITERS)
+                        rows.append(dict(
+                            collective=coll, n=n, bytes_per_rank=nbytes,
+                            dtype=str(dtype).replace("torch.", ""),
+                            algo=plan.algo, blocks_per_rank=plan.executor
+                            .blocks, us=ms * 1e3, native_us=nat_ms * 1e3,
+                            native_max_abs_err=err, fold_bound=bound,
+                            sleep_covered=bool(cov and nat_cov)))
+                    del x, got, want, again, native
+    stats = dict(c.stats)
+    comm.reset_default_communicators()
+    torch.cuda.empty_cache()
+    return dict(cases=cases, stats=stats, timing=rows)
+
+
+def _stacked_tree(cfg, n, gen, device):
+    """``cfg``'s parameter tree (the nesting of ``init_params``), every
+    leaf rank-stacked ``(n, ...)``: seeded random bf16, leaf by leaf."""
+    from repro_torch.models import transformer as tf
+    base = tf.init_params(cfg, gen, device=device)
+
+    def stack(t):
+        if isinstance(t, dict):
+            return {k: stack(t.pop(k)) for k in list(t)}
+        if isinstance(t, (list, tuple)):
+            return [stack(v) for v in t]
+        return torch.randn((n,) + tuple(t.shape), generator=gen,
+                           device=device, dtype=torch.bfloat16)
+
+    return stack(base)
+
+
+def _tree_call(device, gen):
+    """(b): ``api.tree_all_reduce`` over qwen3-1.7b's whole parameter
+    tree, bf16, TP ranks stacked: one executor launch, every leaf within
+    the fold bound of its f32 sum; at 4 layers bit-equal to the plain
+    version; device ms beside the HBM bound (every rank's leaves read
+    once, written once) and ``torch_native``'s; the peak memory."""
+    from repro_torch import configs
+    from repro_torch.core import api, comm
+    from repro_torch.core.comm import _tree_leaves
+    from repro_torch.core.executor import CudaExecutor
+    from repro_torch.kernels import comm_utils
+    comm.reset_default_communicators()
+    # the tree, its flat buffer, the reduced buffer and the plan's scratch
+    # take 65 GB: drop the library kernels' cached workspaces that earlier
+    # phases left (made again at their next call)
+    comm_utils._WORKSPACES.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(ARCH)
+    small = _stacked_tree(dataclasses.replace(cfg, n_layers=4), TP, gen,
+                          device)
+    got = api.tree_all_reduce(small, "model")
+    want = api.tree_all_reduce(small, "model", backend="torch")
+    for g, w in zip(_tree_leaves(got), _tree_leaves(want)):
+        check(torch.equal(g, w), "tree_all_reduce at 4 layers != plain")
+    del small, got, want, g, w     # the leaves are views of the outputs
+    comm.reset_default_communicators()
+    torch.cuda.empty_cache()
+    tree = _stacked_tree(cfg, TP, gen, device)
+    leaves = _tree_leaves(tree)
+    elems = sum(leaf[0].numel() for leaf in leaves)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()   # the tree and any leftovers
+    torch.cuda.reset_peak_memory_stats()
+    before = CudaExecutor.launches
+    out = api.tree_all_reduce(tree, "model")
+    torch.cuda.synchronize()
+    launches = CudaExecutor.launches - before
+    check(launches == 1, f"tree_all_reduce made {launches} launches")
+    peak = torch.cuda.max_memory_allocated()
+    worst = 0.0
+    for x, y in zip(leaves, _tree_leaves(out)):
+        want = x[0].float()
+        for r in range(1, TP):
+            want += x[r].float()
+        err = (y[0].float() - want).abs().max().item()
+        del want
+        bound = _fold_bound(x, torch.bfloat16)
+        worst = max(worst, err / bound)
+        check(err <= bound, f"tree leaf {tuple(x.shape)}: {err} > {bound}")
+        check(torch.equal(y, y[:1].expand_as(y)), "ranks disagree")
+    del out, x, y          # the leaves are views of one reduced buffer
+    plan = next(iter(api.communicator("model").plans().values()))
+    ms, cov = device_ms(lambda: api.tree_all_reduce(tree, "model"),
+                        TREE_TIME_ITERS)
+    nat_ms, nat_cov = device_ms(
+        lambda: api.tree_all_reduce(tree, "model", backend="torch_native"),
+        TREE_TIME_ITERS)
+    nbytes = 2 * TP * elems * 2
+    rec = dict(arch=ARCH, n_layers=cfg.n_layers, leaves=len(leaves),
+               elements_per_rank=elems, ranks=TP, dtype="bfloat16",
+               algo=plan.algo, rows=plan.shape[0], cols=plan.shape[1],
+               launches=launches, ms=ms, native_ms=nat_ms,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               worst_err_over_bound=worst, peak_gb=peak / 1e9,
+               resident_before_gb=resident / 1e9,
+               sleep_covered=bool(cov and nat_cov))
+    del tree, leaves
+    comm.reset_default_communicators()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _trace_shape(collective, nbytes):
+    """(rows, cols) a rank of ``nbytes`` bf16 at TRACE_COLS columns."""
+    return (nbytes // 2 // TRACE_COLS, TRACE_COLS)
+
+
+def _stamp_checks(tr) -> dict:
+    """(c)'s gates on one device trace: every event completes at or after
+    its issue; each block's raw stamps run forward (start <= end <= next
+    start) on both timers; on the raw best run, no wait ends more than
+    one tick before the latest end of the puts it waits for."""
+    from repro_torch.core.trace import _stamp_times
+    dev = tr.device
+    st = dev["stamps"]
+    check(all(ev.complete_us >= ev.issue_us for ev in tr.events),
+          f"{tr.algo}: an event completes before its issue")
+    for g in ((0, 1), (2, 3)):
+        seq = st[:, :, g].reshape(st.shape[0], -1)
+        check(bool((np.diff(seq, axis=1) >= 0).all()),
+              f"{tr.algo}: a block's stamps run backwards")
+    start, end = _stamp_times(st, dev["timer"], dev["cycles_per_ns"])
+    nb = dev["blocks"]
+    ends = {}
+    for e, ev in enumerate(tr.events):
+        r, i = dev["index"][e]
+        ends[(ev.iid, ev.sub, ev.rank)] = end[r * nb:(r + 1) * nb, i].max()
+    worst = 0.0
+    for e, ev in enumerate(tr.events):
+        if ev.op == "wait" and ev.deps:
+            r, i = dev["index"][e]
+            early = max(ends[tuple(d)] for d in ev.deps) - \
+                end[r * nb:(r + 1) * nb, i].max()
+            worst = max(worst, early)
+    check(worst <= dev["tick_ns"], f"{tr.algo}: a wait ended {worst} ns "
+          f"before its puts (tick {dev['tick_ns']} ns)")
+    return dict(wait_before_put_ns=worst, tick_ns=dev["tick_ns"],
+                stamp_tick_ns=dev["stamp_tick_ns"])
+
+
+def _traces(device, gen):
+    """(c): every registry candidate of all_reduce, all_gather and
+    reduce_scatter at n = 4, O0 and O2, bf16, at each TRACE_SIZES: the
+    traced kernel's output bit-equal to the untraced one, the stamp
+    gates, and the plan's untraced and traced device µs."""
+    from repro_torch.core import selector as sel
+    from repro_torch.core import trace
+    from repro_torch.core.comm import Communicator
+    from repro_torch.core.executor import device_timer
+    timer = device_timer(device)
+    c = Communicator("model", n=TP, device=device)
+    traces, rows = [], []
+    for coll in TRACE_COLLECTIVES:
+        for algo in sel.CANDIDATES[coll]:
+            for lvl in (0, 2):
+                for nbytes in TRACE_SIZES:
+                    shape = _trace_shape(coll, nbytes)
+                    plan = c.compile(coll, shape, torch.bfloat16, algo=algo,
+                                     opt_level=lvl)
+                    check(plan.pad == 0, f"{algo}: padded trace shape")
+                    x = torch.randn((TP,) + shape, generator=gen,
+                                    device=device).to(torch.bfloat16)
+                    tr = plan.capture_trace(x)
+                    out_t, _ = plan.executor.launch_traced(x)
+                    check(torch.equal(out_t, plan(x)),
+                          f"{algo} O{lvl} {nbytes} B: traced != untraced")
+                    gates = _stamp_checks(tr)
+                    us, cov = device_ms(lambda: plan(x), TRACE_TIME_ITERS)
+                    t_us, t_cov = device_ms(
+                        lambda: plan.executor.launch_traced(x),
+                        TRACE_TIME_ITERS)
+                    traces.append(tr)
+                    rows.append(dict(
+                        collective=coll, algo=algo, opt_level=lvl,
+                        bytes_per_rank=nbytes, events=len(tr.events),
+                        span_us=tr.span_us, us=us * 1e3, traced_us=t_us * 1e3,
+                        overhead=t_us / us, timer=tr.device["timer"],
+                        median_op_ns=tr.device["median_op_ns"],
+                        blocks_per_rank=plan.executor.blocks,
+                        traced_blocks_per_rank=tr.device["blocks"],
+                        sleep_covered=bool(cov and t_cov), **gates))
+                    del x, out_t
+    return traces, rows, timer
+
+
+def _fit_and_predict(traces, rows):
+    """(d): the card's link from the three smaller sizes' traces; each
+    16 MiB trace replayed under it, and every other candidate of its
+    collective and level predicted from it, beside the measured µs."""
+    from repro_torch.core import selector as sel
+    from repro_torch.core import simulate
+    big = max(TRACE_SIZES)
+    fit_on = [t for t, r in zip(traces, rows) if r["bytes_per_rank"] < big]
+    link = sel.fit_from_traces(fit_on)      # a degenerate fit raises
+    measured = {(r["collective"], r["algo"], r["opt_level"],
+                 r["bytes_per_rank"]): r for r in rows}
+    preds = []
+    for t, r in zip(traces, rows):
+        if r["bytes_per_rank"] != big:
+            continue
+        rep = simulate.replay(t, link=link)
+        entry = dict(collective=r["collective"], algo=r["algo"],
+                     opt_level=r["opt_level"], measured_us=r["us"],
+                     span_us=t.span_us, replay_us=rep.predicted_us,
+                     replay_rel_err=abs(rep.predicted_us - r["us"]) / r["us"],
+                     whatif={})
+        for other in sel.CANDIDATES[r["collective"]]:
+            if other == r["algo"]:
+                continue
+            w = simulate.whatif(t, algo=other, link=link)
+            m = measured[(r["collective"], other, r["opt_level"], big)]["us"]
+            entry["whatif"][other] = dict(
+                predicted_us=w.predicted_us, measured_us=m,
+                rel_err=abs(w.predicted_us - m) / m)
+        preds.append(entry)
+    return link, preds
+
+
+def _selection(device, gen, link, traces, rows):
+    """(e): at each decode plan shape and at (c)'s sizes, the algorithm
+    ``choose`` picks under UNFITTED and under the fitted link, the one
+    the table from the O2 traces picks, and the fastest candidate by
+    CUDA events (O2)."""
+    from repro_torch.core import selector as sel
+    from repro_torch.core.comm import Communicator
+    o2 = [t for t, r in zip(traces, rows) if r["opt_level"] == 2]
+    table = sel.TuningTable.from_traces(o2, link=link)
+    c = Communicator("model", n=TP, device=device)
+    moe = _moe_cfg(MOE_LAYERS)
+    from repro_torch import configs
+    from repro_torch.distributed.moe_parallel import ep_capacity
+    qwen = configs.get_config(ARCH)
+    cap = moe.moe.num_experts // TP * ep_capacity(BATCH, moe.moe.top_k)
+    points = [("qwen3-1.7b layer_allreduce", "all_reduce",
+               (BATCH, qwen.d_model), torch.bfloat16),
+              ("qwen3-1.7b logits_allgather", "all_gather",
+               (BATCH, qwen.vocab // TP), torch.float32),
+              ("phi3.5-moe moe_alltoall", "all_to_all",
+               (TP * cap, moe.d_model), torch.bfloat16),
+              ("hymba-1.5b layer_allreduce", "all_reduce",
+               (BATCH, _hybrid_cfg().d_model), torch.bfloat16)]
+    points += [(f"{coll} {nbytes} B", coll, _trace_shape(coll, nbytes),
+                torch.bfloat16) for coll in TRACE_COLLECTIVES
+               for nbytes in TRACE_SIZES]
+    out = []
+    for label, coll, shape, dtype in points:
+        esize = torch.empty((), dtype=dtype).element_size()
+        nbytes = shape[0] * shape[1] * esize * (TP if coll == "all_gather"
+                                                else 1)
+        x = torch.randn((TP,) + shape, generator=gen,
+                        device=device).to(dtype)
+        measured = {}
+        for algo in sel.CANDIDATES[coll]:
+            if not sel.supports(algo, TP):
+                continue
+            plan = c.compile(coll, shape, dtype, algo=algo, opt_level=2)
+            ms, _ = device_ms(lambda: plan(x), TRACE_TIME_ITERS)
+            measured[algo] = ms * 1e3
+        out.append(dict(
+            point=label, collective=coll, shape=list(shape),
+            dtype=str(dtype).replace("torch.", ""), nbytes=nbytes,
+            unfitted=sel.choose(coll, n=TP, nbytes=nbytes),
+            fitted=sel.choose(coll, n=TP, nbytes=nbytes, link=link),
+            table=sel.choose(coll, n=TP, nbytes=nbytes, link=link,
+                             table=table),
+            fastest=min(measured, key=measured.get), measured_us=measured))
+        del x
+    return table, out
+
+
+def _traced_engine(device):
+    """(f): qwen3-1.7b explicit at full width, 4 layers, with
+    ``ServeConfig(trace=True)``: one device trace per plan, recorded
+    before the capture; the graph holds untraced executor nodes only,
+    each cooperative; tokens equal to the untraced engine's."""
+    from repro_torch import configs
+    from repro_torch.core.executor import CudaExecutor, graph_nodes
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = dataclasses.replace(configs.get_config(ARCH), n_layers=4)
+    gen = torch.Generator(device=device).manual_seed(14)
+    params = tf.init_params(cfg, gen, device=device)
+    prompts = np.random.RandomState(14).randint(
+        0, cfg.vocab, (BATCH, PROMPT)).astype(np.int64)
+    runs = {}
+    for traced in (False, True):
+        eng = Engine(cfg, params, ServeConfig(batch=BATCH, max_kv=MAX_KV,
+                                              trace=traced),
+                     tp=TP, mode="explicit")
+        t0 = CudaExecutor.traced_launches
+        eng.capture()
+        nodes, coop, traced_nodes = graph_nodes(eng.graph.graph)
+        report = eng.plan_report()
+        out = _serve(eng, prompts, 16)
+        runs[traced] = dict(
+            tokens=out["tokens"], nodes=nodes, cooperative=coop,
+            traced_nodes=traced_nodes, launches=eng.graph.launches,
+            traced_launches=CudaExecutor.traced_launches - t0,
+            trace={k: v for k, v in report["trace"].items()},
+            ms_per_token=out["ms_per_token"])
+        check(nodes == coop == eng.graph.launches and traced_nodes == 0,
+              f"traced={traced}: graph nodes {nodes}, cooperative {coop}, "
+              f"traced {traced_nodes}, launches {eng.graph.launches}")
+        del eng
+        gc.collect()
+    on, off = runs[True], runs[False]
+    check(all(v is not None and v["backend"] == "cuda" and v["events"] > 0
+              for v in on["trace"].values()),
+          f"plan_report()['trace'] without a device trace a plan: "
+          f"{on['trace']}")
+    check(all(v is None for v in off["trace"].values()),
+          "an untraced engine recorded traces")
+    check(np.array_equal(on["tokens"], off["tokens"]),
+          "traced engine's tokens differ from the untraced engine's")
+    del params
+    torch.cuda.empty_cache()
+    return dict(n_layers=cfg.n_layers, graph_nodes=on["nodes"],
+                cooperative=on["cooperative"], traced_nodes=on["traced_nodes"],
+                traced_launches_before_capture=on["traced_launches"],
+                plans_traced=sorted(on["trace"]), traces=on["trace"],
+                tokens_equal=True, ms_per_token=on["ms_per_token"],
+                ms_per_token_untraced=off["ms_per_token"])
+
+
+def phase_api(device, gen):
+    """Phase 14: the collective API and its tuning loop on the card."""
+    from repro_torch.core.executor import CudaExecutor
+    t = time.perf_counter()
+    smi = nvidia_smi()
+    a = _api_calls(device, gen)
+    emit("api", **a, seconds=round(time.perf_counter() - t, 3))
+    b = _tree_call(device, gen)
+    emit("api_tree", **b)
+    traces, rows, timer = _traces(device, gen)
+    emit("api_traces", plans=len(rows), timer=timer, rows=rows,
+         traced_launches=CudaExecutor.traced_launches)
+    link, preds = _fit_and_predict(traces, rows)
+    emit("api_fit", card=smi, link=dataclasses.asdict(link),
+         fitted_on=[s for s in TRACE_SIZES if s < max(TRACE_SIZES)],
+         predictions=preds)
+    table, choices = _selection(device, gen, link, traces, rows)
+    emit("api_selection", card=smi, link=dataclasses.asdict(link),
+         table=table.entries, choices=choices)
+    f = _traced_engine(device)
+    emit("api_engine", **f, seconds=round(time.perf_counter() - t, 3))
+    overhead = sorted(r["overhead"] for r in rows)
+    return dict(traced_overhead_median=overhead[len(overhead) // 2],
+                traced_overhead_max=overhead[-1],
+                traced_overhead_by_size={
+                    s: float(np.median([r["overhead"] for r in rows
+                                        if r["bytes_per_rank"] == s]))
+                    for s in TRACE_SIZES},
+                timer=timer["tick_ns"], traced_shapes=len(rows))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default 1-6 and "
-                         "8-13; 7 profiles a decode step)")
+                         "8-14; 7 profiles a decode step)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -4234,8 +4728,8 @@ def main(argv=None) -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
-    max_err, launches, timing, coll, moe, prefill, hier, hybrid, serve = (
-        None,) * 9
+    (max_err, launches, timing, coll, moe, prefill, hier, hybrid, serve,
+     api) = (None,) * 10
     if 2 in phases:
         phase_build()
     if 3 in phases:
@@ -4260,6 +4754,8 @@ def main(argv=None) -> int:
         hybrid = phase_hybrid(device)
     if 13 in phases:
         serve = phase_serve(device, gen)
+    if 14 in phases:
+        api = phase_api(device, gen)
     kernels = []
     if timing is not None:
         # each main path's per-step launch mix at full occupancy (every
@@ -4354,7 +4850,10 @@ def main(argv=None) -> int:
             bound_by="bytes",
             blocks_per_rank=sorted({t["blocks_per_rank"] for t in timing}),
             threads=sorted({t["threads"] for t in timing}),
-            by_path=by_path, per_shape=shapes))
+            by_path=by_path, per_shape=shapes,
+            # phase 14: the traced kernel's µs over the untraced one's, at
+            # every traced plan of (c) (median, worst, median by size)
+            traced_overhead=api))
     if hier is not None:
         # the executor's group view on phase 11's path, apart from the
         # decode mixes above: 14 hierarchical replays of 3 launches each.

@@ -32,7 +32,16 @@ Backends: ``"torch"`` is the plain version (:class:`~.executor.
 TorchExecutor`) on any device; ``"cuda"`` is the hand-written kernel
 (:class:`~.executor.CudaExecutor`) for CUDA tensors only.
 :func:`default_backend` picks ``"cuda"`` on the card and ``"torch"`` on
-the CPU. Plans exported by the reference (``repro.core.comm.
+the CPU. ``"torch_native"`` is the baseline the collectives are measured
+against, the counterpart of the reference's ``"xla_native"``: one plain
+PyTorch call a collective (``x.sum(0)`` expanded, a reshape, a
+transpose), no plan.
+
+:func:`default_communicator` keeps one process-default communicator an
+axis name (what :mod:`repro_torch.core.api` calls through). It is made
+without ``n``: it takes the axis size from each payload's leading
+dimension and the device from the payload, so it serves any ``n`` on any
+device, and a tuning table or link installed on it retunes every size. Plans exported by the reference (``repro.core.comm.
 export_plan_set``) load here: the file's ``"xla"``/``"pallas"``
 backend is ignored and each plan is re-prepared for this device.
 """
@@ -52,17 +61,20 @@ from repro_torch.core import passes
 from repro_torch.core import selector as sel
 from repro_torch.core import verify as verify_mod
 from repro_torch.core.dsl import Program, program_from_dict, program_to_dict
-from repro_torch.core.executor import CudaExecutor, TorchExecutor
+from repro_torch.core.executor import CudaExecutor, TorchExecutor, _capturing
 from repro_torch.mesh import DeviceLike, RankGrid, resolve_device
 
 __all__ = ["Communicator", "ExecutionPlan", "BucketedPlan",
            "HierarchicalPlan", "HierarchicalCommunicator",
            "hierarchical_all_reduce", "default_backend", "plan_from_json",
-           "export_plan_set", "load_plan_set", "PLAN_FORMAT_VERSION",
-           "BACKENDS"]
+           "export_plan_set", "load_plan_set", "default_communicator",
+           "reset_default_communicators", "PLAN_FORMAT_VERSION",
+           "BACKENDS", "NATIVE"]
 
 PLAN_FORMAT_VERSION = 1
 BACKENDS = ("torch", "cuda")
+#: the one-call PyTorch baseline of the collectives (no plan)
+NATIVE = "torch_native"
 COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
                "broadcast")
 
@@ -83,7 +95,7 @@ _BUCKET_PAD = {"all_reduce": "rows", "broadcast": "rows",
                "reduce_scatter": "blocks"}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+           "float16": torch.float16, "int32": torch.int32}
 
 
 def _dtype_name(dtype) -> str:
@@ -172,23 +184,49 @@ class ExecutionPlan:
     device: torch.device
     groups: int = 1
     stride: int = 1
+    #: record a per-instruction timeline (:mod:`~.trace`) at the first
+    #: call outside a CUDA-graph capture (:attr:`last_trace`); replays,
+    #: graph replays among them, record nothing more
+    trace: bool = False
+    _trace_box: list = dataclasses.field(default_factory=list)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Replay on a rank-stacked ``(groups * n, rows, cols)`` payload:
-        no selection, no passes, no executor preparation."""
+        no selection, no passes, no executor preparation. A payload that
+        already holds the ``pad`` rows (zeros) after its own is taken as
+        it is, without a padded copy."""
         ranks = self.groups * self.n
-        if tuple(x.shape) != (ranks,) + tuple(self.shape):
+        padded = bool(self.pad) and tuple(x.shape) == (
+            ranks, self.shape[0] + self.pad, self.shape[1])
+        if tuple(x.shape) != (ranks,) + tuple(self.shape) and not padded:
             raise ValueError(f"plan compiled for ({ranks},) + {self.shape}, "
                              f"got {tuple(x.shape)}")
         if x.dtype != _DTYPES[self.dtype]:
             raise ValueError(f"plan compiled for dtype {self.dtype}, got "
                              f"{x.dtype}")
-        if self.pad:
+        if self.trace and not self._trace_box and not _capturing():
+            self.capture_trace(x)
+        if self.pad and not padded:
             x = F.pad(x, (0, 0, 0, self.pad))
         out = self.executor(x, groups=self.groups, stride=self.stride)
         if self.pad:
             out = out[:, : self.shape[0]]
         return out
+
+    def capture_trace(self, x: Optional[torch.Tensor] = None):
+        """Record (and return) this plan's timeline: on the card its
+        traced kernel on a copy of ``x`` (default: seeded random data),
+        on the CPU the host emulation (:func:`~.trace.capture_plan`)."""
+        from repro_torch.core import trace as trace_mod
+        tr = trace_mod.capture_plan(self, x)
+        self._trace_box[:] = [tr]
+        return tr
+
+    @property
+    def last_trace(self):
+        """The latest :class:`~.trace.Trace` of this plan (None before
+        one was recorded)."""
+        return self._trace_box[-1] if self._trace_box else None
 
     def cost_card(self) -> dict:
         return dict(collective=self.collective, algo=self.algo, n=self.n,
@@ -337,6 +375,15 @@ class BucketedPlan:
         return out.reshape(n, self.n, b, cols)[:, :, :rows].reshape(
             n, self.n * rows, cols)
 
+    @property
+    def last_trace(self):
+        """The largest bucket's latest trace (None before one)."""
+        return self.plans[self.buckets[-1]].last_trace
+
+    def last_traces(self) -> Dict[int, Any]:
+        """bucket -> that bucket's latest trace (or None)."""
+        return {b: self.plans[b].last_trace for b in self.buckets}
+
     def cost_cards(self) -> Dict[int, dict]:
         return {b: self.plans[b].cost_card() for b in self.buckets}
 
@@ -393,49 +440,98 @@ class BucketedPlan:
 
 class Communicator:
     """Init-once planning object for one rank axis of ``n`` ranks on
-    ``device`` (``None``: the CUDA card, raising where there is none)."""
+    ``device`` (``None``: the CUDA card, raising where there is none).
 
-    def __init__(self, axis: str, *, n: int, device: DeviceLike = None,
+    Made without ``n`` (a process default, :func:`default_communicator`)
+    it takes ``n`` and the device from each payload: ``x.shape[0]`` and
+    ``x.device`` in the collectives, ``n=``/``device=`` in
+    :meth:`compile`. ``table`` overrides the selector where it has an
+    entry (:class:`~.selector.TuningTable`); ``trace=True`` makes every
+    plan record its timeline at its first call (:mod:`~.trace`)."""
+
+    def __init__(self, axis: str, *, n: Optional[int] = None,
+                 device: DeviceLike = None,
                  link: sel.LinkModel = sel.UNFITTED,
+                 table: Optional[sel.TuningTable] = None,
                  backend: Optional[str] = None,
                  opt_level: Optional[int] = None,
-                 verify: str = "strict"):
+                 verify: str = "strict", trace: bool = False):
         if verify not in verify_mod.MODES:
             raise ValueError(f"verify must be one of {verify_mod.MODES}, "
                              f"got {verify!r}")
         self.axis = axis
-        self.n = int(n)
-        self.device = resolve_device(device)
-        self.link = link
-        self.backend = backend or default_backend(self.device)
-        if self.backend not in BACKENDS:
+        self.n = None if n is None else int(n)
+        if n is None:             # per payload, unless given
+            self.device = None if device is None else resolve_device(device)
+            self.backend = backend
+        else:
+            self.device = resolve_device(device)
+            self.backend = backend or default_backend(self.device)
+        if self.backend not in BACKENDS + (NATIVE, None):
             raise ValueError(f"unknown backend {self.backend!r}; expected "
-                             f"one of {BACKENDS}")
+                             f"one of {BACKENDS + (NATIVE,)}")
+        self.link = link
+        self.table = table
         self.opt_level = opt_level
         self.verify = verify
+        self.trace = trace
         self._plans: Dict[tuple, ExecutionPlan] = {}
         self._bucketed: Dict[tuple, BucketedPlan] = {}
         self.stats = {"compiles": 0, "hits": 0}
         #: compile-side counters surfaced through Engine.plan_report
         self.health = {"verified": 0, "verify_failures": 0, "recompiles": 0}
 
+    # -- configuration -------------------------------------------------------
+    def set_tuning_table(self, table: Optional[sel.TuningTable]) -> None:
+        """Install (or clear) a tuning table. Both plan caches are
+        cleared: a cached algorithm choice may no longer apply."""
+        self.table = table
+        self._plans.clear()
+        self._bucketed.clear()
+
+    def load_bench_tuning(self, payload, *, fit_link: bool = True) -> None:
+        """Install tuning from a ``BENCH_collectives.json`` payload (a
+        path or the parsed dict): its measured-fastest
+        :class:`~.selector.TuningTable` and, with ``fit_link``, α and β
+        fitted from its wall times (:func:`~.selector.fit_link_model`)."""
+        if not isinstance(payload, dict):
+            with open(payload) as f:
+                payload = json.load(f)
+        if fit_link:
+            self.link = sel.fit_link_model(payload, base=self.link)
+        self.set_tuning_table(sel.TuningTable.from_bench(payload))
+
     def _level(self, opt_level: Optional[int]) -> int:
         lvl = self.opt_level if opt_level is None else opt_level
         return passes.DEFAULT_OPT_LEVEL if lvl is None else lvl
+
+    def _where(self, n: Optional[int], device: DeviceLike):
+        """(n, device) of a compile: the arguments, else the
+        communicator's own."""
+        n = self.n if n is None else int(n)
+        if n is None:
+            raise ValueError(f"communicator {self.axis!r} has no axis size: "
+                             f"pass n= (a collective takes it from the "
+                             f"payload)")
+        if device is None:
+            device = self.device
+        return n, resolve_device(device)
 
     def compile(self, collective: str, shape, dtype, *,
                 algo: Optional[str] = None, backend: Optional[str] = None,
                 opt_level: Optional[int] = None, root: int = 0,
                 link: Optional[sel.LinkModel] = None, groups: int = 1,
-                stride: int = 1) -> ExecutionPlan:
+                stride: int = 1, n: Optional[int] = None,
+                device: DeviceLike = None) -> ExecutionPlan:
         """Compile (or fetch from cache) the plan for one collective on a
         per-rank ``(rows, cols)`` payload of ``dtype``, replayed over
         ``groups`` groups of ``n`` ranks at ``stride`` (default: the
-        axis alone)."""
-        backend = backend or self.backend
+        axis alone). ``n``/``device`` default to the communicator's."""
+        n, device = self._where(n, device)
+        backend = backend or self.backend or default_backend(device)
         if backend not in BACKENDS:
-            raise ValueError(f"unknown backend {backend!r}; expected one of "
-                             f"{BACKENDS}")
+            raise ValueError(f"plans run on a DSL backend {BACKENDS}, got "
+                             f"{backend!r}")
         if collective not in COLLECTIVES:
             raise ValueError(f"unknown collective {collective!r}")
         if groups < 1 or stride < 1 or groups % stride:
@@ -446,15 +542,15 @@ class Communicator:
         level_req = self._level(opt_level)
         rows, cols = int(shape[0]), int(shape[1])
         dtype = _dtype_name(dtype)
-        key = (collective, (rows, cols), dtype, self.n, backend, algo,
+        key = (collective, (rows, cols), dtype, n, backend, algo,
                level_req, link, root if collective == "broadcast" else None,
-               groups, stride)
+               groups, stride, device)
         plan = self._plans.get(key)
         if plan is not None:
             self.stats["hits"] += 1
             return plan
         plan = self._build(collective, rows, cols, dtype, backend, algo,
-                           level_req, root, link, groups, stride)
+                           level_req, root, link, n, device, groups, stride)
         self._plans[key] = plan
         self.stats["compiles"] += 1
         return plan
@@ -462,7 +558,8 @@ class Communicator:
     def plan_for(self, collective: str, shape, dtype, *, buckets=None,
                  algo: Optional[str] = None, backend: Optional[str] = None,
                  opt_level: Optional[int] = None, root: int = 0,
-                 link: Optional[sel.LinkModel] = None):
+                 link: Optional[sel.LinkModel] = None,
+                 n: Optional[int] = None, device: DeviceLike = None):
         """:meth:`compile`, or with ``buckets=(b1, b2, ...)`` one plan per
         bucket behind a :class:`BucketedPlan` (itself cached). Buckets
         count payload rows, except for the ``"blocks"`` families
@@ -470,9 +567,11 @@ class Communicator:
         ``(n * rows, cols)`` payload and buckets count rows per per-rank
         block (for MoE, the per-rank token capacity)."""
         kw = dict(algo=algo, backend=backend, opt_level=opt_level,
-                  root=root, link=link)
+                  root=root, link=link, n=n, device=device)
         if buckets is None:
             return self.compile(collective, shape, dtype, **kw)
+        n, device = self._where(n, device)
+        kw.update(n=n, device=device)
         strategy = _BUCKET_PAD.get(collective)
         if strategy is None:
             raise ValueError(f"unknown collective {collective!r}: bucketed "
@@ -483,36 +582,37 @@ class Communicator:
         if not bs or bs[0] <= 0:
             raise ValueError(f"buckets must be positive row counts: {buckets}")
         if strategy == "blocks":
-            if rows % self.n:
+            if rows % n:
                 raise ValueError(
                     f"{collective} rows={rows} not divisible into the "
-                    f"{self.n} per-rank blocks its 'blocks' padding "
+                    f"{n} per-rank blocks its 'blocks' padding "
                     f"strategy buckets over")
-            rows //= self.n
+            rows //= n
         if rows > bs[-1]:
             raise ValueError(f"shape rows={rows} exceed the largest bucket "
                              f"{bs[-1]}")
         dtype_name = _dtype_name(dtype)
-        key = (collective, bs, cols, dtype_name, self.n,
-               backend or self.backend, algo, self._level(opt_level),
-               link or self.link, root if collective == "broadcast" else None)
+        key = (collective, bs, cols, dtype_name, n,
+               backend or self.backend or default_backend(device), algo,
+               self._level(opt_level), link or self.link,
+               root if collective == "broadcast" else None, device)
         cached = self._bucketed.get(key)
         if cached is not None:
             self.stats["hits"] += 1
             return cached
-        per = self.n if strategy == "blocks" else 1
+        per = n if strategy == "blocks" else 1
         plans = {b: self.compile(collective, (per * b, cols), dtype, **kw)
                  for b in bs}
         bucketed = BucketedPlan(
-            collective=collective, axis=self.axis, n=self.n, cols=cols,
+            collective=collective, axis=self.axis, n=n, cols=cols,
             dtype=dtype_name, buckets=bs, plans=plans,
             hits={b: 0 for b in bs}, pad_strategy=strategy)
         self._bucketed[key] = bucketed
         return bucketed
 
     def _build(self, collective, rows, cols, dtype, backend, algo,
-               level_req, root, link, groups=1, stride=1) -> ExecutionPlan:
-        n = self.n
+               level_req, root, link, n, device, groups=1,
+               stride=1) -> ExecutionPlan:
         itemsize = _DTYPES[dtype].itemsize
         nbytes = rows * cols * itemsize
         if collective == "all_gather":
@@ -521,7 +621,7 @@ class Communicator:
             name = "broadcast_allpairs"
             source = algos.broadcast_allpairs(n, root)
         else:
-            name = self._resolve_algo(collective, nbytes, algo, link,
+            name = self._resolve_algo(collective, n, nbytes, algo, link,
                                       level_req)
             source = algos.REGISTRY[name](n)
 
@@ -532,7 +632,7 @@ class Communicator:
                 level -= 1
                 prog = passes.optimize(source, level, n)
             if level != level_req and algo is None:
-                name = self._resolve_algo(collective, nbytes, algo, link,
+                name = self._resolve_algo(collective, n, nbytes, algo, link,
                                           level)
                 source = algos.REGISTRY[name](n)
                 prog = passes.optimize(source, level, n)
@@ -575,7 +675,7 @@ class Communicator:
             stats["comm_rounds"] + stats["barriers"], stats[bytes_key],
             extra_syncs=max(0, stats["sync_steps"] - stats["comm_rounds"]))
         executor = _build_executor(prog, backend, level, n,
-                                   (rows + pad, cols), dtype, self.device,
+                                   (rows + pad, cols), dtype, device,
                                    groups=groups)
         return ExecutionPlan(
             collective=collective, algo=name, axis=self.axis, n=n,
@@ -583,14 +683,35 @@ class Communicator:
             opt_level=level, requested_opt_level=level_req,
             root=root if collective == "broadcast" else None, pad=pad,
             link=link, estimate_us=est, comm_stats=stats, program=prog,
-            executor=executor, device=self.device, groups=groups,
-            stride=stride)
+            executor=executor, device=device, groups=groups,
+            stride=stride, trace=self.trace)
+
+    def plans(self) -> Dict[tuple, ExecutionPlan]:
+        """A snapshot of the plan cache (key -> plan)."""
+        return dict(self._plans)
 
     # -- collectives on rank-stacked tensors -------------------------------
     # Each compiles the plan for x's shape at the first call and hits the
-    # cache after.
+    # cache after; backend "torch_native" is one plain PyTorch call.
+    def _native(self, backend: Optional[str]) -> bool:
+        return (backend or self.backend) == NATIVE
+
+    def _payload_plan(self, collective, shape, dtype, n, device, **kw):
+        """:meth:`compile` for a payload of ``n`` ranks on ``device``,
+        which fill in what the communicator was made without."""
+        where = {}
+        if self.n is None:
+            where["n"] = n
+        if self.device is None:
+            where["device"] = device
+        return self.compile(collective, shape, dtype, **where, **kw)
+
     def _collective(self, collective, x, **kw) -> torch.Tensor:
-        return self.compile(collective, tuple(x.shape[1:]), x.dtype, **kw)(x)
+        if x.dim() != 3:
+            raise ValueError(f"expected a rank-stacked (n, rows, cols) "
+                             f"payload, got shape {tuple(x.shape)}")
+        return self._payload_plan(collective, tuple(x.shape[1:]), x.dtype,
+                                  x.shape[0], x.device, **kw)(x)
 
     def all_reduce(self, x: torch.Tensor, *, backend: Optional[str] = None,
                    algo: Optional[str] = None,
@@ -598,6 +719,8 @@ class Communicator:
                    opt_level: Optional[int] = None) -> torch.Tensor:
         """x: ``(n, rows, cols)`` -> the same shape, summed over the
         axis."""
+        if self._native(backend):
+            return x.sum(0, dtype=x.dtype).expand_as(x)
         return self._collective("all_reduce", x, backend=backend, algo=algo,
                                 link=link, opt_level=opt_level)
 
@@ -607,6 +730,9 @@ class Communicator:
                    opt_level: Optional[int] = None) -> torch.Tensor:
         """x: ``(n, rows, cols)`` shards -> ``(n, n*rows, cols)``, every
         rank holding all shards in rank order."""
+        if self._native(backend):
+            n, rows, cols = x.shape
+            return x.reshape(1, n * rows, cols).expand(n, n * rows, cols)
         return self._collective("all_gather", x, backend=backend, algo=algo,
                                 link=link, opt_level=opt_level)
 
@@ -617,6 +743,9 @@ class Communicator:
                        opt_level: Optional[int] = None) -> torch.Tensor:
         """x: ``(n, n*rows, cols)`` -> ``(n, rows, cols)``: rank ``r``'s
         reduced row block ``r``."""
+        if self._native(backend):
+            n, total, cols = x.shape
+            return x.sum(0, dtype=x.dtype).reshape(n, total // n, cols)
         return self._collective("reduce_scatter", x, backend=backend,
                                 algo=algo, link=link, opt_level=opt_level)
 
@@ -625,6 +754,8 @@ class Communicator:
                   link: Optional[sel.LinkModel] = None,
                   opt_level: Optional[int] = None) -> torch.Tensor:
         """x: ``(n, rows, cols)`` -> root's buffer on every rank."""
+        if self._native(backend):
+            return x[root:root + 1].expand_as(x)
         return self._collective("broadcast", x, root=root, backend=backend,
                                 link=link, opt_level=opt_level)
 
@@ -634,21 +765,65 @@ class Communicator:
                    opt_level: Optional[int] = None) -> torch.Tensor:
         """x: ``(n, n*rows, cols)``, row block ``b`` of rank ``d`` goes
         to rank ``b``; returns every rank's received blocks stacked."""
+        if self._native(backend):
+            n, total, cols = x.shape
+            return x.reshape(n, n, total // n, cols).transpose(0, 1) \
+                .reshape(n, total, cols)
         return self._collective("all_to_all", x, backend=backend, algo=algo,
                                 link=link, opt_level=opt_level)
 
-    def _resolve_algo(self, collective, nbytes, algo, link, opt_level):
+    def tree_all_reduce(self, tree, *, backend: Optional[str] = None,
+                        lane: int = 128, **kw):
+        """Bucket fusion over a pytree (nested dicts, lists, tuples) of
+        rank-stacked ``(n, ...)`` leaves: flatten every leaf into one
+        ``(n, rows, lane)`` buffer (dict keys sorted, the leaves' common
+        type, zero-padded to a whole lane), all_reduce it once, and
+        unflatten (the leaves come back as views of the reduced buffer).
+        ``kw`` (``algo``, ``link``, ``opt_level``) go to
+        :meth:`all_reduce`."""
+        leaves = _tree_leaves(tree)
+        if not leaves:
+            return tree
+        n = leaves[0].shape[0]
+        dtype = leaves[0].dtype
+        for leaf in leaves[1:]:
+            dtype = torch.promote_types(dtype, leaf.dtype)
+        device = leaves[0].device
+        sizes = [leaf[0].numel() for leaf in leaves]
+        rows = -(-sum(sizes) // lane)
+        plan = None if self._native(backend) else self._payload_plan(
+            "all_reduce", (rows, lane), dtype, n, device, backend=backend,
+            **kw)
+        # one buffer, with the plan's pad rows already in it
+        pad = 0 if plan is None else plan.pad
+        flat = torch.zeros((n, (rows + pad) * lane), dtype=dtype,
+                           device=device)
+        off = 0
+        for leaf, size in zip(leaves, sizes):
+            flat[:, off:off + size] = leaf.reshape(n, size)
+            off += size
+        buf = flat.view(n, rows + pad, lane)
+        red = (plan(buf) if plan is not None
+               else self.all_reduce(buf, backend=backend)).reshape(n, -1)
+        out, off = [], 0
+        for leaf, size in zip(leaves, sizes):     # views of one buffer
+            out.append(red[:, off:off + size].reshape(leaf.shape)
+                       .to(leaf.dtype))
+            off += size
+        return _tree_unflatten(tree, iter(out))
+
+    def _resolve_algo(self, collective, n, nbytes, algo, link, opt_level):
         cands = sel.CANDIDATES[collective]
         if algo is not None:
             if algo not in cands:
                 raise ValueError(f"unknown algorithm {algo!r} for "
                                  f"{collective!r}; expected one of {cands}")
-            if not sel.supports(algo, self.n):
+            if not sel.supports(algo, n):
                 raise ValueError(f"algorithm {algo!r} does not support "
-                                 f"n={self.n} ranks")
+                                 f"n={n} ranks")
             return algo
-        return sel.choose(collective, n=self.n, nbytes=nbytes, link=link,
-                          opt_level=opt_level)
+        return sel.choose(collective, n=n, nbytes=nbytes, link=link,
+                          table=self.table, opt_level=opt_level)
 
     def __repr__(self):
         return (f"Communicator(axis={self.axis!r}, n={self.n}, "
@@ -656,35 +831,62 @@ class Communicator:
                 f"plans={len(self._plans)}, stats={self.stats})")
 
 
+def _tree_leaves(tree) -> list:
+    """A pytree's tensor leaves in the reference's order (``jax.tree``:
+    dict keys sorted, sequences in order)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in _tree_leaves(t)]
+    return [tree]
+
+
+def _tree_unflatten(tree, leaves):
+    """``tree``'s structure with its leaves taken in order from
+    ``leaves``."""
+    if isinstance(tree, dict):
+        out = {k: _tree_unflatten(tree[k], leaves) for k in sorted(tree)}
+        return {k: out[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_unflatten(t, leaves) for t in tree)
+    return next(leaves)
+
+
 def _hierarchical_phases(local: Communicator, node: Communicator, shape,
                          dtype, *, backend: Optional[str],
                          opt_level: Optional[int], small_message_bytes: int,
-                         node_link: Optional[sel.LinkModel] = None) -> dict:
+                         node_link: Optional[sel.LinkModel] = None,
+                         local_n: Optional[int] = None,
+                         node_n: Optional[int] = None,
+                         device: DeviceLike = None) -> dict:
     """The 2PH composition on a node-major grid of ``node.n`` nodes of
-    ``local.n`` ranks: the pad that makes the rows divide L and the three
+    ``local.n`` ranks (``node_n``/``local_n`` for communicators made
+    without ``n``): the pad that makes the rows divide L and the three
     phase plans, each replayed over its axis's groups of the grid
     (:class:`~repro_torch.mesh.RankGrid`). The cross-node AR uses 1PA for
     payloads at or under ``small_message_bytes`` (paper §4.4's first 2PH
     variant), else ``node``'s selector choice on ``node_link`` (default:
     its own link)."""
-    grid = RankGrid(node.n, local.n)
+    grid = RankGrid(node_n or node.n, local_n or local.n)
     rows, cols = int(shape[0]), int(shape[1])
     dtype = _dtype_name(dtype)
     pad = (-rows) % grid.local
     shard = ((rows + pad) // grid.local, cols)
-    kw = dict(backend=backend, opt_level=opt_level)
+    kw = dict(backend=backend, opt_level=opt_level, device=device)
     lgroups, lstride = grid.local_view
     ngroups, nstride = grid.node_view
     small = rows * cols * _DTYPES[dtype].itemsize <= small_message_bytes
     return dict(
         pad=pad,
         rs_plan=local.compile("reduce_scatter", (rows + pad, cols), dtype,
-                              groups=lgroups, stride=lstride, **kw),
+                              groups=lgroups, stride=lstride, n=grid.local,
+                              **kw),
         ar_plan=node.compile("all_reduce", shard, dtype, link=node_link,
                              algo="allreduce_1pa" if small else None,
-                             groups=ngroups, stride=nstride, **kw),
+                             groups=ngroups, stride=nstride, n=grid.nodes,
+                             **kw),
         ag_plan=local.compile("all_gather", shard, dtype, groups=lgroups,
-                              stride=lstride, **kw))
+                              stride=lstride, n=grid.local, **kw))
 
 
 def hierarchical_all_reduce(x: torch.Tensor, *, local: Communicator,
@@ -692,23 +894,30 @@ def hierarchical_all_reduce(x: torch.Tensor, *, local: Communicator,
                             backend: Optional[str] = None,
                             small_message_bytes: int = 1 << 20,
                             opt_level: Optional[int] = None,
-                            node_link: Optional[sel.LinkModel] = None
-                            ) -> torch.Tensor:
+                            node_link: Optional[sel.LinkModel] = None,
+                            local_n: Optional[int] = None) -> torch.Tensor:
     """2PH AllReduce (paper §4.4-2PH) over two communicators:
     RS(local) → AR(node) → AG(local), on a node-major ``(node.n *
-    local.n, rows, cols)`` grid.
+    local.n, rows, cols)`` grid (``local_n`` gives L where ``local`` was
+    made without ``n``; the nodes are then ``x.shape[0] // L``).
 
     The cross-node phase moves 1/L of the data (L = ``local.n``). For
     small messages the cross-node hop uses 1PA (the paper's first 2PH
     variant); for large, whatever ``node``'s selector picks on
     ``node_link`` (default: the node communicator's own link)."""
-    if x.dim() != 3 or x.shape[0] != local.n * node.n:
-        raise ValueError(f"expected a ({node.n} nodes x {local.n} local, "
+    lnum = local_n or local.n
+    if lnum is None:
+        raise ValueError(f"communicator {local.axis!r} has no axis size: "
+                         f"pass local_n=")
+    nnum = node.n or x.shape[0] // lnum
+    if x.dim() != 3 or x.shape[0] != lnum * nnum:
+        raise ValueError(f"expected a ({nnum} nodes x {lnum} local, "
                          f"rows, cols) payload, got {tuple(x.shape)}")
     phases = _hierarchical_phases(
         local, node, tuple(x.shape[1:]), x.dtype, backend=backend,
         opt_level=opt_level, small_message_bytes=small_message_bytes,
-        node_link=node_link)
+        node_link=node_link, local_n=lnum, node_n=nnum,
+        device=None if local.device is not None else x.device)
     return HierarchicalPlan(shape=tuple(x.shape[1:]),
                             dtype=_dtype_name(x.dtype), local_axis=local.axis,
                             node_axis=node.axis, **phases)(x)
@@ -1028,3 +1237,25 @@ def load_plan_set(path, *, device: DeviceLike = None,
         out[name] = plan_from_json(f.read_text(), device=device,
                                    backend=backend, verify=verify)
     return out
+
+
+# ---------------------------------------------------------------------------
+# process-default communicators (what core/api.py calls through)
+# ---------------------------------------------------------------------------
+_DEFAULTS: Dict[str, Communicator] = {}
+
+
+def default_communicator(axis: str) -> Communicator:
+    """The process-default :class:`Communicator` of an axis name, made at
+    first use without ``n`` or a device (both come from each payload).
+    Install a tuning table or a link on it to retune the module-level
+    :mod:`repro_torch.core.api` collectives of that axis."""
+    comm = _DEFAULTS.get(axis)
+    if comm is None:
+        comm = _DEFAULTS[axis] = Communicator(axis)
+    return comm
+
+
+def reset_default_communicators() -> None:
+    """Drop every process-default communicator."""
+    _DEFAULTS.clear()

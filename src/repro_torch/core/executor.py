@@ -58,7 +58,7 @@ from repro_torch.core.dsl import IndexExpr, Instr, Op, Program, full_fanout
 from repro_torch.mesh import group_ranks
 
 __all__ = ["TorchExecutor", "CudaExecutor", "EncodedProgram", "encode",
-           "execute", "graph_nodes", "OPCODES", "FIELDS"]
+           "execute", "graph_nodes", "device_timer", "OPCODES", "FIELDS"]
 
 
 # ---------------------------------------------------------------------------
@@ -291,12 +291,79 @@ class TorchExecutor:
             acc = acc + v
         self._set(bufs, db, di, acc, n, ar)
 
+    # -- profiling -----------------------------------------------------------
+    def trace_emissions(self, n: int):
+        """The lowered emission stream for an ``n``-rank axis
+        (:mod:`repro_torch.core.trace`), as the reference's
+        ``XlaExecutor.trace_emissions`` labels it: one ``all_to_all`` (a
+        rank/chunk transpose here) or ``all_gather`` (a broadcast over
+        ranks) emission per fan-out round, one (stacked) ``ppermute`` (a
+        rank permutation) per same-shift group, per-triple emissions in
+        reference mode; synchronization erases to program order
+        (``data_dep``)."""
+        from repro_torch.core.trace import Emission
+        p = self.program
+        plan = None
+        if self.vectorize:
+            if self._prepared is not None and self._prepared[0] == n:
+                plan = self._prepared[1]
+            else:
+                plan = _lowering_plan(p, n)
+        out = []
+        for iid, instr in enumerate(p.instructions()):
+            rid = instr.round_id
+            if instr.op is Op.PUT:
+                triples = instr.put_triples()
+                if plan is None:
+                    for sub, t in enumerate(triples):
+                        k = _peer_key(t[2], n)
+                        out.append(Emission(
+                            iid, sub, "put", "ppermute", rid,
+                            shift=k if isinstance(k, int) else None,
+                            puts=(t,)))
+                    continue
+                action = plan[id(instr)]
+                if action.kind == "a2a":
+                    out.append(Emission(iid, 0, "put", "all_to_all", rid,
+                                        puts=tuple(triples)))
+                elif action.kind == "gather":
+                    out.append(Emission(iid, 0, "put", "all_gather", rid,
+                                        puts=tuple(triples)))
+                else:
+                    for sub, (k, ts) in enumerate(action.groups):
+                        out.append(Emission(
+                            iid, sub, "put",
+                            "stacked_ppermute" if len(ts) > 1 else "ppermute",
+                            rid, shift=k % n if isinstance(k, int) else None,
+                            puts=tuple(ts)))
+            elif instr.op is Op.WAIT:
+                out.append(Emission(iid, 0, "wait", "data_dep", rid,
+                                    waits=tuple(instr.wait_chunks())))
+            elif instr.op is Op.BARRIER:
+                out.append(Emission(iid, 0, "barrier", "data_dep", rid))
+            elif instr.op is Op.FLUSH:
+                continue  # no-op here (program order)
+            elif instr.op in (Op.COPY, Op.REDUCE):
+                out.append(Emission(iid, 0, instr.op.value, "jnp", rid,
+                                    dst=instr.dst, srcs=tuple(instr.srcs)))
+            else:  # pragma: no cover
+                raise NotImplementedError(instr.op)
+        return out
+
     # -- entry point ---------------------------------------------------------
     def __call__(self, x: torch.Tensor, *, groups: int = 1,
                  stride: int = 1) -> torch.Tensor:
         if x.dim() != 3:
             raise ValueError(f"expected a rank-stacked (n, rows, cols) "
                              f"payload, got shape {tuple(x.shape)}")
+        from repro_torch.core import trace as trace_mod
+        col = trace_mod.active()
+        if col is not None:       # profiler hook: one group's timeline
+            p = self.program
+            col.record(self, n=x.shape[0] // groups,
+                       chunk_rows=x.shape[1] // p.chunks[p.in_buffer],
+                       cols=x.shape[2], dtype=_dtype_str(x.dtype),
+                       backend="torch")
         if groups == 1:
             return self._run(x)
         if x.shape[0] % groups:
@@ -411,6 +478,13 @@ class EncodedProgram:
     n_flags: int                   # put flag slots per receiving rank
     n_barriers: int
     writes_input: bool             # input must be copied before launch
+    #: int32 [n, n_ops, 2]: the (instruction, emission) each row runs —
+    #: the ids of :meth:`CudaExecutor.trace_emissions` — or -1 (zero, nop)
+    tags: np.ndarray
+    #: wait instruction -> its chunks grouped by the flag slot each waits
+    #: on (one row a group, indices into ``wait_chunks()``); None where
+    #: the grouping differs between ranks
+    wait_groups: Optional[Dict[int, Tuple[Tuple[int, ...], ...]]]
 
     def puts_per_rank(self) -> int:
         return int((self.ops[0, :, 0] == OPCODES["put"]).sum())
@@ -495,19 +569,24 @@ def encode(program: Program, n: int) -> EncodedProgram:
                             (r, peer, db, di(r, n)), []).append(f)
         emissions[id(instr)] = ems
 
-    # pass 2: per-rank instruction rows
+    # pass 2: per-rank instruction rows, each tagged with the (instruction,
+    # emission) it runs
     ops: List[List[List[int]]] = []
+    tags: List[List[Tuple[int, int]]] = []
     operands: List[List[Tuple[int, int]]] = []
+    wait_groups: Optional[Dict[int, tuple]] = {}
     n_barriers = 0
     for r in range(n):
         row: List[List[int]] = []
+        tag: List[Tuple[int, int]] = []
         opnd: List[Tuple[int, int]] = []
         consumed: Dict[tuple, int] = {}
         written = {(p.in_buffer, c) for c in range(p.chunks[p.in_buffer])}
         read: set = set()
         bar = 0
-        for instr in instrs:
+        for iid, instr in enumerate(instrs):
             if instr.op is Op.PUT:
+                sub = 0
                 for key, triples, slab, fids in emissions[id(instr)]:
                     peer = _peer_of(key, r, n)
                     if slab is not None:
@@ -516,14 +595,18 @@ def encode(program: Program, n: int) -> EncodedProgram:
                         read |= {(sb, s0 + j) for j in range(k)}
                         row.append([OPCODES["put"], bid[sb], s0, bid[db],
                                     k * d_base(r, n), peer, k, fids[0]])
+                        tag.append((iid, sub))
+                        sub += 1
                     else:
                         for ((sb, si), (db, di), _), f in zip(triples, fids):
                             read.add((sb, si(r, n)))
                             row.append([OPCODES["put"], bid[sb], si(r, n),
                                         bid[db], di(r, n), peer, 1, f])
+                            tag.append((iid, sub))
+                            sub += 1
             elif instr.op is Op.WAIT:
-                seen = set()
-                for (db, e), frm in instr.wait_chunks():
+                groups: Dict[int, List[int]] = {}
+                for c, ((db, e), frm) in enumerate(instr.wait_chunks()):
                     key = (frm(r, n) % n, r, db, e(r, n))
                     flags = deliveries.get(key)
                     if not flags:
@@ -532,11 +615,20 @@ def encode(program: Program, n: int) -> EncodedProgram:
                     # the k-th wait on a chunk matches its k-th delivery
                     f = flags[min(consumed.get(key, 0), len(flags) - 1)]
                     consumed[key] = consumed.get(key, 0) + 1
-                    if f not in seen:
-                        seen.add(f)
+                    if f not in groups:
+                        tag.append((iid, len(groups)))
                         row.append([OPCODES["wait"], 0, 0, 0, 0, 0, 0, f])
+                        groups[f] = []
+                    groups[f].append(c)
+                grouped = tuple(tuple(g) for g in groups.values())
+                if r == 0:
+                    wait_groups[iid] = grouped
+                elif wait_groups is not None \
+                        and wait_groups.get(iid) != grouped:
+                    wait_groups = None
             elif instr.op is Op.BARRIER:
                 row.append([OPCODES["barrier"], 0, 0, 0, 0, 0, 0, bar])
+                tag.append((iid, 0))
                 bar += 1
             elif instr.op is Op.FLUSH:
                 continue  # puts complete before their signal: no-op
@@ -546,6 +638,7 @@ def encode(program: Program, n: int) -> EncodedProgram:
                 written.add((db, di(r, n)))
                 row.append([OPCODES["copy"], bid[sb], si(r, n), bid[db],
                             di(r, n), 0, 1, 0])
+                tag.append((iid, 0))
             elif instr.op is Op.REDUCE:
                 if len(instr.srcs) > MAX_OPERANDS:
                     raise ValueError(f"reduce with {len(instr.srcs)} operands;"
@@ -553,6 +646,7 @@ def encode(program: Program, n: int) -> EncodedProgram:
                 db, di = instr.dst
                 row.append([OPCODES["reduce"], len(opnd), len(instr.srcs),
                             bid[db], di(r, n), 0, 1, 0])
+                tag.append((iid, 0))
                 for sb, si in instr.srcs:
                     read.add((sb, si(r, n)))
                     opnd.append((bid[sb], si(r, n)))
@@ -565,14 +659,18 @@ def encode(program: Program, n: int) -> EncodedProgram:
         zero = sorted((read | out_slots) - written)
         row = [[OPCODES["zero"], 0, 0, bid[b], c, 0, 1, 0]
                for b, c in zero] + row
+        tag = [(-1, -1)] * len(zero) + tag
         ops.append(row)
+        tags.append(tag)
         operands.append(opnd)
 
     n_ops = max(len(rw) for rw in ops)
     table = np.zeros((n, max(n_ops, 1), FIELDS), np.int32)
+    tag_table = np.full((n, max(n_ops, 1), 2), -1, np.int32)
     for r, rw in enumerate(ops):
         if rw:
             table[r, :len(rw)] = np.asarray(rw, np.int32)
+            tag_table[r, :len(rw)] = np.asarray(tags[r], np.int32)
     n_opnd = max(1, max(len(o) for o in operands))
     opnds = np.zeros((n, n_opnd, 2), np.int32)
     for r, o in enumerate(operands):
@@ -581,13 +679,19 @@ def encode(program: Program, n: int) -> EncodedProgram:
     return EncodedProgram(n=n, buffers=tuple(names), ops=table,
                           operands=opnds, n_flags=n_flags,
                           n_barriers=n_barriers,
-                          writes_input=_writes_buffer(p, p.in_buffer))
+                          writes_input=_writes_buffer(p, p.in_buffer),
+                          tags=tag_table, wait_groups=wait_groups)
 
 
 # ---------------------------------------------------------------------------
 # CudaExecutor — the kernel's wrapper
 # ---------------------------------------------------------------------------
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                torch.int32: 3}
+
+
+def _dtype_str(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 def _capturing() -> bool:
@@ -615,8 +719,10 @@ class CudaExecutor:
 
     #: kernel launches made through any CudaExecutor, eager or into a
     #: CUDA-graph capture (the main path's proof that it ran on the
-    #: kernel)
+    #: kernel); traced launches are counted apart
     launches: int = 0
+    #: launches of the traced kernel (:meth:`launch_traced`)
+    traced_launches: int = 0
 
     def __init__(self, program: Program):
         self.program = _frozen(program)
@@ -624,6 +730,7 @@ class CudaExecutor:
         self._bound: Optional[tuple] = None       # the last one launched
         self._bindings: dict[tuple, tuple] = {}
         self._captured: set[tuple] = set()
+        self._traced: dict[tuple, tuple] = {}     # traced launches' state
 
     @property
     def blocks(self) -> Optional[int]:
@@ -702,7 +809,148 @@ class CudaExecutor:
             raise ValueError(
                 f"CudaExecutor runs CUDA tensors only, got a tensor on "
                 f"{x.device}; use backend='torch' for the plain version")
+        from repro_torch.core import trace as trace_mod
+        col = trace_mod.active()
+        if col is not None:       # profiler hook: the traced kernel on x
+            if groups != 1:
+                raise ValueError("a trace covers one group of ranks; trace "
+                                 "a group view's plan on one group")
+            p = self.program
+            col.record(self, n=x.shape[0],
+                       chunk_rows=x.shape[1] // p.chunks[p.in_buffer],
+                       cols=x.shape[2], dtype=_dtype_str(x.dtype),
+                       backend="cuda", x=x)
         return self._launch(x, groups, stride)
+
+    # -- profiling -----------------------------------------------------------
+    def trace_emissions(self, n: int):
+        """What the encoded table issues for an ``n``-rank axis
+        (:mod:`repro_torch.core.trace`), one emission per row of a rank:
+        puts grouped by peer map as ``PallasExecutor.trace_emissions``
+        groups its DMAs (a contiguous slab is one ``put_slab``, else one
+        ``put`` a chunk), one ``flag_wait`` per flag slot a WAIT spins on,
+        ``block_barrier`` and ``block`` copies/reduces. The ids are the
+        table's tags (:attr:`EncodedProgram.tags`)."""
+        from repro_torch.core.trace import Emission
+        p = self.program
+        enc = (self.encoded if self.encoded is not None
+               and self.encoded.n == n else encode(p, n))
+        if enc.wait_groups is None:
+            raise ValueError(f"{p.name!r}: its waits group by flag slot "
+                             f"differently on different ranks at n={n}; "
+                             f"its trace has no rank-independent ids")
+        out = []
+        for iid, instr in enumerate(p.instructions()):
+            rid = instr.round_id
+            if instr.op is Op.PUT:
+                sub = 0
+                for key, triples, slab in _put_emissions(instr, n):
+                    k = key % n if isinstance(key, int) else None
+                    if slab is not None:
+                        out.append(Emission(iid, sub, "put", "put_slab", rid,
+                                            shift=k, puts=tuple(triples)))
+                        sub += 1
+                    else:
+                        for t in triples:
+                            out.append(Emission(iid, sub, "put", "put", rid,
+                                                shift=k, puts=(t,)))
+                            sub += 1
+            elif instr.op is Op.WAIT:
+                chunks = instr.wait_chunks()
+                for sub, group in enumerate(enc.wait_groups[iid]):
+                    out.append(Emission(iid, sub, "wait", "flag_wait", rid,
+                                        waits=tuple(chunks[c]
+                                                    for c in group)))
+            elif instr.op is Op.BARRIER:
+                out.append(Emission(iid, 0, "barrier", "block_barrier", rid))
+            elif instr.op is Op.FLUSH:
+                continue  # puts complete before their signal
+            elif instr.op in (Op.COPY, Op.REDUCE):
+                out.append(Emission(iid, 0, instr.op.value, "block", rid,
+                                    dst=instr.dst, srcs=tuple(instr.srcs)))
+            else:  # pragma: no cover
+                raise NotImplementedError(instr.op)
+        return out
+
+    def launch_traced(self, x: torch.Tensor):
+        """One launch of the traced kernel on ``x`` (one group of ranks):
+        ``(out, stamps)``, ``stamps`` int64 ``[n * blocks][ops][4]``
+        (global start, global end, clock start, clock end a row; see
+        ``csrc/executor.cu``). Its flags, epoch words, scratch and stamps
+        are its own, kept per shape, and its blocks a rank come from the
+        traced kernel's own residency limit; a next traced launch of the
+        shape overwrites ``stamps``. Outside a CUDA-graph capture only."""
+        enc = self.encoded
+        if enc is None:
+            raise RuntimeError("CudaExecutor.launch_traced before prepare(n)")
+        if x.device.type != "cuda":
+            raise ValueError(f"the traced kernel runs CUDA tensors only, got "
+                             f"a tensor on {x.device}")
+        if _capturing():
+            raise RuntimeError("the traced kernel is not launched inside a "
+                               "CUDA graph capture: captured steps hold the "
+                               "untraced kernel only")
+        p = self.program
+        n = enc.n
+        n_in, n_out = p.chunks[p.in_buffer], p.chunks[p.out_buffer]
+        if x.dim() != 3 or x.shape[0] != n or x.shape[1] % n_in:
+            raise ValueError(f"expected ({n}, {n_in} * rows, cols), got "
+                             f"{tuple(x.shape)}")
+        if x.dtype not in _DTYPE_CODES:
+            raise ValueError(f"CudaExecutor takes {list(_DTYPE_CODES)}, "
+                             f"got {x.dtype}")
+        rows, cols = x.shape[1] // n_in, x.shape[2]
+        from repro_torch.kernels import build
+        lib = build.executor_library()
+        key = (rows, cols, x.dtype, x.device)
+        st = self._traced.get(key)
+        if st is None:
+            cap = lib.dsl_executor_max_blocks_traced(_DTYPE_CODES[x.dtype],
+                                                     THREADS)
+            blocks = blocks_per_rank(rows * cols, x.element_size(), n, cap)
+            scratch = [torch.empty((n, p.chunks[b] * rows, cols),
+                                   dtype=x.dtype, device=x.device)
+                       for b in enc.buffers[2:]]
+            group_flags = max(1, n * (enc.n_flags + enc.n_barriers) * blocks)
+            st = self._traced[key] = (
+                blocks, scratch, group_flags,
+                torch.zeros(group_flags, dtype=torch.int32, device=x.device),
+                torch.zeros(n * blocks, dtype=torch.int32, device=x.device),
+                torch.from_numpy(enc.ops).to(x.device),
+                torch.from_numpy(enc.operands).to(x.device),
+                torch.zeros((n * blocks, enc.ops.shape[1], 4),
+                            dtype=torch.int64, device=x.device))
+        blocks, scratch, group_flags, flags, epochs, ops, opnds, stamps = st
+        x = x.contiguous()
+        if enc.writes_input:
+            x = x.clone()
+        out = torch.empty((n, n_out * rows, cols), dtype=x.dtype,
+                          device=x.device)
+        table = self._buffer_table([x, out] + scratch, cols, n,
+                                   x.element_size())
+        rc = lib.dsl_executor_launch_traced(
+            table, _DTYPE_CODES[x.dtype], n, 1, 1, ops.data_ptr(),
+            ops.shape[1], opnds.data_ptr(), opnds.shape[1], flags.data_ptr(),
+            enc.n_flags, group_flags, epochs.data_ptr(), rows * cols, blocks,
+            THREADS, stamps.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"traced dsl_executor launch failed for {p.name!r} (n={n}): "
+                f"{lib.dsl_executor_error_string(rc).decode()}")
+        CudaExecutor.traced_launches += 1
+        return out, stamps
+
+    @staticmethod
+    def _buffer_table(tensors, cols: int, ranks: int, esize: int):
+        """The kernel's [buffer][rank] table of base pointers."""
+        table = (ctypes.c_void_p * (MAX_BUFFERS * MAX_RANKS))()
+        for b, t in enumerate(tensors):
+            step = (t.shape[1] * cols) * esize            # one rank's buffer
+            base = t.data_ptr()
+            for r in range(ranks):
+                table[b * MAX_RANKS + r] = base + r * step
+        return table
 
     def _launch(self, x: torch.Tensor, groups: int = 1,
                 stride: int = 1) -> torch.Tensor:
@@ -739,13 +987,8 @@ class CudaExecutor:
                           device=device)
 
         chunk_elems = rows * cols
-        esize = x.element_size()
-        table = (ctypes.c_void_p * (MAX_BUFFERS * MAX_RANKS))()
-        for b, t in enumerate([x, out] + scratch):
-            step = (t.shape[1] * cols) * esize            # one rank's buffer
-            base = t.data_ptr()
-            for r in range(groups * n):
-                table[b * MAX_RANKS + r] = base + r * step
+        table = self._buffer_table([x, out] + scratch, cols, groups * n,
+                                   x.element_size())
         from repro_torch.kernels import build
         lib = build.executor_library()
         rc = lib.dsl_executor_launch(
@@ -762,19 +1005,53 @@ class CudaExecutor:
         return out
 
 
-def graph_nodes(graph: "torch.cuda.CUDAGraph") -> tuple[int, int]:
-    """(executor kernel nodes, of them cooperative) of a captured graph
-    kept with ``keep_graph=True``: what the capture recorded of the
-    executor's launches, read back from the graph itself."""
+def graph_nodes(graph: "torch.cuda.CUDAGraph") -> tuple[int, int, int]:
+    """(executor kernel nodes, of them cooperative, traced kernel nodes)
+    of a captured graph kept with ``keep_graph=True``: what the capture
+    recorded of the executor's launches, read back from the graph itself.
+    The first two count the untraced kernel, which plans replay; the
+    third the traced one, which a capture should never hold."""
     from repro_torch.kernels import build
     lib = build.executor_library()
-    nodes, coop = ctypes.c_int(), ctypes.c_int()
+    nodes, coop, traced = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     rc = lib.dsl_executor_graph_nodes(graph.raw_cuda_graph(),
-                                      ctypes.byref(nodes), ctypes.byref(coop))
+                                      ctypes.byref(nodes), ctypes.byref(coop),
+                                      ctypes.byref(traced))
     if rc != 0:
         raise RuntimeError(f"reading the graph's nodes failed: "
                            f"{lib.dsl_executor_error_string(rc).decode()}")
-    return nodes.value, coop.value
+    return nodes.value, coop.value, traced.value
+
+
+_TIMERS: Dict[Any, dict] = {}
+
+
+def device_timer(device=None) -> dict:
+    """The card's timers, probed once a device: ``tick_ns``, the least
+    step of ``%globaltimer`` between two readings, and
+    ``cycles_per_ns``, the SM clock (``clock64()`` cycles over 2 ms of
+    ``%globaltimer``)."""
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    info = _TIMERS.get(device)
+    if info is None:
+        from repro_torch.kernels import build
+        lib = build.executor_library()
+        out = torch.zeros(4, dtype=torch.int64, device=device)
+        rc = lib.dsl_executor_timer_probe(
+            2_000_000, out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"timer probe failed: "
+                               f"{lib.dsl_executor_error_string(rc).decode()}")
+        tick, span_ns, cycles, changes = (int(v) for v in out.tolist())
+        if changes < 1 or span_ns <= 0:
+            raise RuntimeError(f"%globaltimer did not advance over the "
+                               f"probe ({out.tolist()})")
+        info = _TIMERS[device] = dict(tick_ns=tick, cycles_per_ns=cycles
+                                      / span_ns, probe_ns=span_ns,
+                                      changes=changes)
+    return info
 
 
 def execute(program: Program, x: torch.Tensor, *,

@@ -55,6 +55,13 @@
 //   local index across nodes (the node axis), read in place, with no
 //   transposing copy. One group at stride 1 is the plain single-axis launch.
 //
+// * Tracing: a second instantiation of the same body stamps every op of
+//   every block (%globaltimer and clock64(), thread 0, between two
+//   __syncthreads()) into a device array; the untraced kernel keeps its
+//   parameters and code. The wrapper launches the traced kernel only outside
+//   a CUDA-graph capture, and dsl_executor_graph_nodes counts the two kinds
+//   apart, so a captured decode step holds untraced nodes alone.
+//
 // Bound on an H100 SXM: the bytes moved through HBM (each input read once,
 // each output written once, at 3.35 TB/s), and at decode sizes (a few to a
 // few hundred KB) the launch latency and the flag round trips, which run in
@@ -85,13 +92,21 @@ __device__ __forceinline__ void zero(B* dst, long long count) {
   for (long long i = threadIdx.x; i < count; i += blockDim.x) dst[i] = B(0);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-dsl_executor_kernel(BufTable bufs, const int* __restrict__ ops, int n_ops,
-                    const int* __restrict__ opnds, int opnds_per_rank,
-                    unsigned* flags, int n_flags, int group_flags,
-                    unsigned* __restrict__ epochs, long long chunk_elems, int n,
-                    int stride, int nb) {
+// The kernel's body, for the untraced kernel (kTrace false: the kernel the
+// plans run, instruction for instruction) and the traced one. With kTrace,
+// thread 0 of each block stamps every op of its row: after a __syncthreads()
+// before the op and another after it (so the stamps bracket every thread's
+// part of the op), it writes %globaltimer and clock64() into
+// stamps[block][op] = {global start, global end, clock start, clock end}.
+// The host turns them into one event per op and rank (core/trace.py): the
+// earliest start over the rank's blocks is the op's issue, the latest end
+// its completion.
+template <typename T, bool kTrace>
+__device__ __forceinline__ void executor_body(
+    const BufTable& bufs, const int* __restrict__ ops, int n_ops,
+    const int* __restrict__ opnds, int opnds_per_rank, unsigned* flags, int n_flags,
+    int group_flags, unsigned* __restrict__ epochs, long long chunk_elems, int n, int stride,
+    int nb, unsigned long long* __restrict__ stamps) {
   using B = typename Elem<T>::B;
   __shared__ const B* s_src[kMaxOperands];
   __shared__ unsigned s_epoch;
@@ -123,6 +138,15 @@ dsl_executor_kernel(BufTable bufs, const int* __restrict__ ops, int n_ops,
   };
 
   for (int i = 0; i < n_ops; ++i) {
+    unsigned long long* st = nullptr;
+    if constexpr (kTrace) {
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        st = stamps + (static_cast<long long>(blockIdx.x) * n_ops + i) * 4;
+        st[0] = global_ns();
+        st[2] = static_cast<unsigned long long>(clock64());
+      }
+    }
     const int* f = row + i * kFields;
     switch (f[0]) {
       case OP_PUT: {  // [op, src_buf, src_chunk, dst_buf, dst_chunk, peer, nchunks, flag]
@@ -159,7 +183,101 @@ dsl_executor_kernel(BufTable bufs, const int* __restrict__ ops, int n_ops,
       default:  // OP_NOP pads shorter rows
         break;
     }
+    if constexpr (kTrace) {
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        st[1] = global_ns();
+        st[3] = static_cast<unsigned long long>(clock64());
+      }
+    }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+dsl_executor_kernel(BufTable bufs, const int* __restrict__ ops, int n_ops,
+                    const int* __restrict__ opnds, int opnds_per_rank,
+                    unsigned* flags, int n_flags, int group_flags,
+                    unsigned* __restrict__ epochs, long long chunk_elems, int n,
+                    int stride, int nb) {
+  executor_body<T, false>(bufs, ops, n_ops, opnds, opnds_per_rank, flags, n_flags, group_flags,
+                          epochs, chunk_elems, n, stride, nb, nullptr);
+}
+
+// The traced instantiation: the same body with the stamps. It is launched
+// only outside a CUDA-graph capture (core/executor.py: CudaExecutor.
+// launch_traced), so a captured graph holds untraced nodes alone.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+dsl_executor_traced_kernel(BufTable bufs, const int* __restrict__ ops, int n_ops,
+                           const int* __restrict__ opnds, int opnds_per_rank,
+                           unsigned* flags, int n_flags, int group_flags,
+                           unsigned* __restrict__ epochs, long long chunk_elems, int n,
+                           int stride, int nb, unsigned long long* __restrict__ stamps) {
+  executor_body<T, true>(bufs, ops, n_ops, opnds, opnds_per_rank, flags, n_flags, group_flags,
+                         epochs, chunk_elems, n, stride, nb, stamps);
+}
+
+// One thread reads %globaltimer in a tight loop for `spin_ns`: the least
+// step between two different readings is the timer's tick on this card,
+// and the clock64() cycles over the same span give the SM clock.
+// out = {tick ns, span ns, span cycles, readings that changed}.
+__global__ void timer_probe_kernel(long long spin_ns, unsigned long long* out) {
+  if (threadIdx.x != 0) return;
+  const long long c0 = clock64();
+  const unsigned long long g0 = global_ns();
+  unsigned long long prev = g0, g = g0, tick = ~0ull, changes = 0;
+  while ((g = global_ns()) - g0 < static_cast<unsigned long long>(spin_ns)) {
+    if (g != prev) {
+      if (g - prev < tick) tick = g - prev;
+      prev = g;
+      ++changes;
+    }
+  }
+  const long long c1 = clock64();
+  out[0] = tick;
+  out[1] = g - g0;
+  out[2] = static_cast<unsigned long long>(c1 - c0);
+  out[3] = changes;
+}
+
+}  // namespace msccl
+
+namespace msccl {
+
+// The kernel of `dtype` (the traced one with kTrace), nullptr for an
+// unknown code.
+template <bool kTrace>
+const void* executor_fn(int dtype) {
+  if constexpr (kTrace) return MSCCL_BY_DTYPE(dtype, dsl_executor_traced_kernel);
+  else return MSCCL_BY_DTYPE(dtype, dsl_executor_kernel);
+}
+
+template <bool kTrace>
+int max_blocks(int dtype, int threads) {
+  const void* fn = executor_fn<kTrace>(dtype);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (fn == nullptr || threads < 32 || threads > kMaxThreads ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, 0) != cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
+template <bool kTrace>
+int launch(const void* table, int dtype, int n, int groups, int stride, const int* ops,
+           int n_ops, const int* opnds, int opnds_per_rank, unsigned* flags, int n_flags,
+           int group_flags, unsigned* epochs, long long chunk_elems, int nb, int threads,
+           unsigned long long* stamps, void* stream) {
+  if (n < 1 || groups < 1 || stride < 1 || groups % stride || n * groups > kMaxGridRanks ||
+      nb < 1 || threads > kMaxThreads || epochs == nullptr || (kTrace && stamps == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BufTable t;
+  memcpy(&t, table, sizeof(t));
+  void* args[] = {&t, &ops, &n_ops, &opnds, &opnds_per_rank, &flags, &n_flags,
+                  &group_flags, &epochs, &chunk_elems, &n, &stride, &nb, &stamps};
+  return launch_cooperative(executor_fn<kTrace>(dtype), n * groups * nb, threads, args, stream);
 }
 
 }  // namespace msccl
@@ -168,17 +286,14 @@ extern "C" {
 
 // The most blocks of the executor kernel for `dtype` at `threads` that the
 // card keeps resident at once (the cooperative launch's limit); 0 on an
-// error.
+// error. The traced kernel asks its own function: it may need more
+// registers, and its launch must fit its own limit.
 int dsl_executor_max_blocks(int dtype, int threads) {
-  using namespace msccl;
-  const void* fn = MSCCL_BY_DTYPE(dtype, dsl_executor_kernel);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (fn == nullptr || threads < 32 || threads > kMaxThreads ||
-      cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, 0) != cudaSuccess)
-    return 0;
-  return sms * per_sm;
+  return msccl::max_blocks<false>(dtype, threads);
+}
+
+int dsl_executor_max_blocks_traced(int dtype, int threads) {
+  return msccl::max_blocks<true>(dtype, threads);
 }
 
 // Launch one replay over `groups` groups of n ranks (the group view above),
@@ -191,26 +306,39 @@ int dsl_executor_launch(const void* table, int dtype, int n, int groups, int str
                         const int* ops, int n_ops, const int* opnds, int opnds_per_rank,
                         unsigned* flags, int n_flags, int group_flags, unsigned* epochs,
                         long long chunk_elems, int nb, int threads, void* stream) {
-  using namespace msccl;
-  if (n < 1 || groups < 1 || stride < 1 || groups % stride || n * groups > kMaxGridRanks ||
-      nb < 1 || threads > kMaxThreads || epochs == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  BufTable t;
-  memcpy(&t, table, sizeof(t));
-  void* args[] = {&t, &ops, &n_ops, &opnds, &opnds_per_rank, &flags,
-                  &n_flags, &group_flags, &epochs, &chunk_elems, &n, &stride, &nb};
-  return launch_cooperative(MSCCL_BY_DTYPE(dtype, dsl_executor_kernel), n * groups * nb,
-                            threads, args, stream);
+  return msccl::launch<false>(table, dtype, n, groups, stride, ops, n_ops, opnds, opnds_per_rank,
+                              flags, n_flags, group_flags, epochs, chunk_elems, nb, threads,
+                              nullptr, stream);
+}
+
+// The same launch of the traced kernel; `stamps` is a device array of
+// n * groups * nb * n_ops * 4 words (see executor_body).
+int dsl_executor_launch_traced(const void* table, int dtype, int n, int groups, int stride,
+                               const int* ops, int n_ops, const int* opnds, int opnds_per_rank,
+                               unsigned* flags, int n_flags, int group_flags, unsigned* epochs,
+                               long long chunk_elems, int nb, int threads,
+                               unsigned long long* stamps, void* stream) {
+  return msccl::launch<true>(table, dtype, n, groups, stride, ops, n_ops, opnds, opnds_per_rank,
+                             flags, n_flags, group_flags, epochs, chunk_elems, nb, threads,
+                             stamps, stream);
+}
+
+// Launch the timer probe (one block) on `stream`; `out` is a device array of
+// 4 words (see timer_probe_kernel).
+int dsl_executor_timer_probe(long long spin_ns, unsigned long long* out, void* stream) {
+  msccl::timer_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(spin_ns, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Walk a captured graph (cudaGraph_t) and count its kernel nodes of the
-// executor kernel (any element type), and of those the ones whose launch
-// carries the cooperative attribute. Nodes of other kernels (PyTorch's,
-// cuBLAS's) are skipped, an error of their query included. Returns 0 or
-// the cudaError_t of listing the nodes.
-int dsl_executor_graph_nodes(void* graph, int* nodes, int* cooperative) {
+// untraced executor kernel (any element type), of those the ones whose
+// launch carries the cooperative attribute, and the nodes of the traced
+// kernel (none, where tracing stays out of captures). Nodes of other
+// kernels (PyTorch's, cuBLAS's) are skipped, an error of their query
+// included. Returns 0 or the cudaError_t of listing the nodes.
+int dsl_executor_graph_nodes(void* graph, int* nodes, int* cooperative, int* traced) {
   using namespace msccl;
-  *nodes = *cooperative = 0;
+  *nodes = *cooperative = *traced = 0;
   size_t count = 0;
   cudaGraph_t g = static_cast<cudaGraph_t>(graph);
   cudaError_t err = cudaGraphGetNodes(g, nullptr, &count);
@@ -226,8 +354,12 @@ int dsl_executor_graph_nodes(void* graph, int* nodes, int* cooperative) {
       cudaGetLastError();
       continue;
     }
-    bool ours = false;
-    for (int code = 0; code < 4; ++code) ours |= p.func == MSCCL_BY_DTYPE(code, dsl_executor_kernel);
+    bool ours = false, tr = false;
+    for (int code = 0; code < 4; ++code) {
+      ours |= p.func == executor_fn<false>(code);
+      tr |= p.func == executor_fn<true>(code);
+    }
+    *traced += tr;
     if (!ours) continue;
     ++*nodes;
     cudaLaunchAttributeValue v;

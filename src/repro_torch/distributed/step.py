@@ -398,7 +398,8 @@ def _capture(run, device, *, reset=None, pool=None):
     or draws a host epoch, fails the capture: this raises, with no eager
     fallback. So does a graph whose executor kernel nodes are not the
     launches made into it, each with the cooperative attribute (its
-    blocks spin on each other). Returns (graph, run's output,
+    blocks spin on each other), or that holds a node of the traced
+    kernel. Returns (graph, run's output,
     launches captured)."""
     device = torch.device(device)
     if device.type != "cuda":
@@ -422,12 +423,12 @@ def _capture(run, device, *, reset=None, pool=None):
         out = run()
     captured = CudaExecutor.launches - before
     if captured:
-        nodes, cooperative = graph_nodes(graph)
-        if not nodes == cooperative == captured:
+        nodes, cooperative, traced = graph_nodes(graph)
+        if not nodes == cooperative == captured or traced:
             raise RuntimeError(
                 f"the captured step holds {nodes} executor kernel nodes, "
-                f"{cooperative} of them cooperative, for {captured} "
-                f"launches made into the capture")
+                f"{cooperative} of them cooperative, and {traced} traced "
+                f"nodes, for {captured} launches made into the capture")
     graph.instantiate()
     return graph, out, captured
 

@@ -124,13 +124,22 @@ def executor_library() -> ctypes.CDLL:
         c.c_int,               # threads per block
         c.c_void_p,            # stream
     ]
-    lib.dsl_executor_max_blocks.restype = c.c_int
-    lib.dsl_executor_max_blocks.argtypes = [c.c_int, c.c_int]
+    # the traced launch: the same arguments and the stamps (device)
+    lib.dsl_executor_launch_traced.restype = c.c_int
+    lib.dsl_executor_launch_traced.argtypes = (
+        lib.dsl_executor_launch.argtypes[:-1] + [c.c_void_p, c.c_void_p])
+    for fn in (lib.dsl_executor_max_blocks, lib.dsl_executor_max_blocks_traced):
+        fn.restype = c.c_int
+        fn.argtypes = [c.c_int, c.c_int]
+    lib.dsl_executor_timer_probe.restype = c.c_int
+    lib.dsl_executor_timer_probe.argtypes = [c.c_longlong, c.c_void_p,
+                                             c.c_void_p]
     lib.dsl_executor_error_string.restype = c.c_char_p
     lib.dsl_executor_error_string.argtypes = [c.c_int]
     lib.dsl_executor_graph_nodes.restype = c.c_int
     lib.dsl_executor_graph_nodes.argtypes = [
-        c.c_void_p, c.POINTER(c.c_int), c.POINTER(c.c_int)]
+        c.c_void_p, c.POINTER(c.c_int), c.POINTER(c.c_int),
+        c.POINTER(c.c_int)]
     return lib
 
 

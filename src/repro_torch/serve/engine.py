@@ -108,6 +108,9 @@ class ServeConfig:
     # fused-prefill sequence buckets (prompt-chunk lengths the scheduler
     # prefills in one micro-step); None: token-by-token prefill plans only
     prefill_seq_buckets: Optional[tuple] = None
+    # record each decode plan's per-instruction timeline at its first call
+    # outside a CUDA-graph capture (core/trace.py; plan_report()["trace"])
+    trace: bool = False
 
 
 class Engine:
@@ -148,7 +151,7 @@ class Engine:
                        "timeouts": 0}
         self.comm = comm if comm is not None else comm_lib.Communicator(
             self.axis.name, n=tp, device=self.device,
-            verify=serve_cfg.verify)
+            verify=serve_cfg.verify, trace=serve_cfg.trace)
         if decode_plans is not None:
             _check_plan_set(cfg, decode_plans, tp=tp,
                             batch_local=serve_cfg.batch,
@@ -216,7 +219,10 @@ class Engine:
         occupancy: per layer 2 AllReduces (dense: attention out-proj and
         MLP down-proj), 3 (hybrid: the SSM out-proj too) or 1 AllReduce
         and 2 all_to_alls (MoE: out-proj, dispatch and combine), the
-        embedding gather-reduce and the logits gather."""
+        embedding gather-reduce and the logits gather. With
+        ``ServeConfig.trace`` the ``trace`` key holds each plan's (its
+        largest bucket's) latest timeline summary, None before that
+        bucket ran."""
         def top_plan(p):
             return p.plans[p.buckets[-1]] if isinstance(
                 p, comm_lib.BucketedPlan) else p
@@ -239,10 +245,14 @@ class Engine:
         if a2a is not None:
             per_tok += 2 * self.cfg.n_layers * top_plan(a2a).estimate_us
         health = dict(self.health, **self.comm.health)
+        traces = {name: (tr.summary() if (tr := top_plan(p).last_trace)
+                         is not None else None)
+                  for name, p in self.decode_plans.items()}
         return dict(mode=self.mode, requested_mode=self.requested_mode,
                     degraded=self.mode != self.requested_mode, plans=cards,
                     predicted_comm_us_per_token=round(per_tok, 2),
-                    health=health, communicator=repr(self.comm))
+                    health=health, trace=traces,
+                    communicator=repr(self.comm))
 
     # -- prefill: feed prompts token by token through the decode path ------
     def prefill(self, prompts: np.ndarray):
