@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 1,2,12 # build, then hymba-1.5b served
     python3 chip_smoke.py --phases 1,2,13 # build, then the serving stack
     python3 chip_smoke.py --phases 1,2,14 # build, then the API and traces
+    python3 chip_smoke.py --phases 1,2,15 # build, then faults and guardrails
 
 Phases, each printing one JSON line (any failure raises, exit != 0):
 
@@ -255,6 +256,36 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    at the warm-up steps before the capture; each graph holding only
    untraced executor nodes, each cooperative; tokens equal.
 
+15. the robustness layer — qwen3-1.7b at full width and depth, TP=4
+   stacked on the card, bf16: (a) an explicit engine with every guard
+   armed (``guard_numerics=True, plan_timeout_s=30``), and each guard
+   alone, against the same engine unguarded: explicit, every counter 0,
+   the same graph (58 executor nodes, each cooperative, none traced),
+   tokens equal and first-step logits bit-equal; ms/token of each over
+   interleaved decode loops, and the guards' own host costs apart (the
+   ``isfinite`` read over 8 x 151936 logits, the watchdog's handoff);
+   (b) each runtime fault fired at the explicit engine's capture:
+   ``fail_call`` once retried (explicit, tokens equal to the clean
+   explicit run's), and ``fail_call`` persistent, ``corrupt_chunk``
+   under the numeric guard and ``stall_rank`` (5 s) past a 1 s watchdog
+   each falling back at step 0: tokens and first-step logits bit-equal
+   to a clean auto engine's, no executor node left, the stalled worker
+   ending void and the cache as it was when it woke; the fallback's peak
+   memory; (c) a fault in an eager fused prefill step after 3 ticks of
+   trace A's first 8 requests: one fallback, the router naming the
+   replica, streams against the sequential run (f32 at 4 layers,
+   qwen3-1.7b and hymba-1.5b: equal; bf16 at 28 layers: the stream bar
+   at SERVE_TIE_MARGIN); (d) ``python -m repro_torch.launch.serve``
+   in-process, explicit, 4 layers, the one-shot and the router path;
+   (e) a planted build failure (a stand-in ``nvcc``), a launch the
+   runtime refuses (more blocks a rank than the card keeps resident: a
+   real non-zero ``cudaError_t``), a planted CUDA error and the
+   capture's node check planted one short, each propagating out of the
+   engine (and the first three out of a scheduler) with every counter
+   at 0. Phases 4, 9, 12 and 13 also fail when a
+   served engine or scheduler ends in another mode than it was asked
+   for, or with a guardrail counter moved.
+
 The last lines are the card's nvidia-smi line, one ``{"kernels": [...]}``
 JSON object, and ``{"ok": true, "device": {...}}``. The whole record,
 the kernels line among it, also goes to ``chiprun_out/chip_smoke.json``.
@@ -486,6 +517,17 @@ TRACE_COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter")
 TRACE_SIZES = (4 << 10, 64 << 10, 1 << 20, 16 << 20)   # bytes a rank, bf16
 TRACE_COLS = 512
 TRACE_TIME_ITERS = 20
+# phase 15: the robustness layer
+CHAOS_COUNTERS = ("retries", "fallbacks", "faults_detected", "timeouts")
+CHAOS_TIMEOUT_S = 30.0                  # the armed watchdog of (a), (e)
+CHAOS_STALL = (1.0, 5.0)                # (b): watchdog timeout, stall (s)
+CHAOS_TIME_ROUNDS, CHAOS_TIME_STEPS = 4, 32   # (a): timed decode loops
+CHAOS_COST_ITERS = 200                  # the guards' own costs, apart
+CHAOS_REQUESTS = 8                      # (c): trace A's first requests
+CHAOS_FAULT_TICK = 3                    # (c): ticks before the fault
+CHAOS_F32_LAYERS = 4                    # (c) f32, (d), (e) depth
+CHAOS_LAUNCH_LAYERS = 4
+CHAOS_REFUSED_BLOCKS = 4096             # (e): blocks a rank, never resident
 
 RECORD: dict = {}
 
@@ -821,12 +863,15 @@ def _serve(eng, prompts, n_decode, seed=0):
     wrapper made in the first step."""
     from repro_torch.core.executor import CudaExecutor
     dev = eng.device
-    torch.cuda.synchronize()
+    # the stream's work, not the device's: a watchdog's abandoned worker
+    # may still be capturing on another stream (phase 15)
+    stream = torch.cuda.current_stream(dev)
+    stream.synchronize()
     before = CudaExecutor.launches
     first = eng._run_step(torch.as_tensor(prompts[:, 0], dtype=torch.long,
                                           device=dev))
     eng.pos += 1
-    torch.cuda.synchronize()
+    stream.synchronize()
     first_step_launches = CudaExecutor.launches - before
     logits = eng.prefill(prompts[:, 1:])
     e0 = torch.cuda.Event(enable_timing=True)
@@ -834,7 +879,7 @@ def _serve(eng, prompts, n_decode, seed=0):
     e0.record()
     toks = eng.decode(logits, num_tokens=n_decode, seed=seed)
     e1.record()
-    torch.cuda.synchronize()
+    stream.synchronize()
     return dict(first=first.float().cpu(), last=logits.float().cpu(),
                 tokens=toks, ms_per_token=e0.elapsed_time(e1) / n_decode,
                 first_step_launches=first_step_launches)
@@ -935,6 +980,7 @@ def _run_engine(cfg, params, prompts, mode, n_decode, count_launches,
         check(backends == {"cuda"}, f"explicit plans on {backends}")
     out = _serve(eng, prompts, n_decode, seed)
     torch.cuda.synchronize()
+    _healthy(eng, f"{cfg.name} {mode}")
     # read just after (an auto run does not count: it makes none)
     out["launches"] = CudaExecutor.launches if count_launches else None
     out["graph_launches"] = eng.graph.launches
@@ -949,6 +995,7 @@ def _run_engine(cfg, params, prompts, mode, n_decode, count_launches,
     before = CudaExecutor.launches
     eager = _serve(eng, prompts, n_decode, seed)
     eager["launches"] = CudaExecutor.launches - before
+    _healthy(eng, f"{cfg.name} {mode} eager")
     out["eager"] = eager
     label = f"{cfg.name} {mode}{' int8' if kv_quant else ''}"
     check(torch.equal(out["first"], eager["first"]),
@@ -3948,6 +3995,7 @@ def _trace_a(cfg, params, device, gen):
     rep = sched.plan_report()
     check(rep["degraded"] is False and rep["mode"] == "explicit",
           "the explicit scheduler degraded")
+    _healthy(sched, "trace A explicit")
     out["explicit"] = dict(
         {k: run[k] for k in ("wall_ms", "profiler_pause_ms", "tokens",
                              "tokens_per_s", "ttft_wall_s",
@@ -4026,6 +4074,7 @@ def _trace_a(cfg, params, device, gen):
     m = sched.metrics()
     check(m["completed"] == len(trace) and m["dropped"] == 0,
           f"trace A auto: {m}")
+    _healthy(sched, "trace A auto")
     check(torch.equal(sched.first[0], first[0]), "the first tick's inputs "
           "differ between explicit and auto")
     act = first[0][2].bool()
@@ -4074,6 +4123,8 @@ def _router_twice(cfg, params):
         m = router.metrics()
         check(m["completed"] == len(trace) and m["dropped"] == 0,
               f"{cfg.name} f32 router: {m}")
+        for i, r in enumerate(router.replicas):
+            _healthy(r, f"{cfg.name} f32 router replica {i}")
         runs.append(dict(routed=dict(router.routed),
                          streams=dict(router.streams),
                          virtual={k: m[k] for k in (
@@ -4128,6 +4179,8 @@ def _trace_b(cfg, params, device):
               f"trace B {name}: {m}")
         check(rep["degraded"] == [], f"trace B {name}: degraded replicas "
               f"{rep['degraded']}")
+        for i, r in enumerate(router.replicas):
+            _healthy(r, f"trace B {name} replica {i}")
         out[name] = dict(
             {k: run[k] for k in ("wall_ms", "tokens", "tokens_per_s",
                                  "ttft_wall_s")},
@@ -4168,6 +4221,7 @@ def _serve_short(cfg, params, label, per_tick, per_prefill, margin):
     m = sched.metrics()
     check(m["completed"] == len(trace) and m["dropped"] == 0,
           f"{label}: {m}")
+    _healthy(sched, label)
     streams = dict(sched.streams)
     prefill = _prefill_record(sched, per_prefill, label)
     base = _sequential(sched, trace, TRACE_SHORT["step_s"])
@@ -4705,11 +4759,571 @@ def phase_api(device, gen):
                 timer=timer["tick_ns"], traced_shapes=len(rows))
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the robustness layer (faults and the serving guardrails)
+# ---------------------------------------------------------------------------
+def _healthy(x, label):
+    """An engine or scheduler that served as it was asked: its running
+    mode the requested one, nothing degraded, and every guardrail counter
+    at 0 (a fallback would leave the executor kernel for the plain
+    model)."""
+    eng = getattr(x, "eng", x)
+    rep = x.plan_report()
+    check(rep["mode"] == eng.requested_mode and not rep["degraded"],
+          f"{label}: serving {rep['mode']}, requested {eng.requested_mode}")
+    moved = {k: eng.health[k] for k in CHAOS_COUNTERS if eng.health[k]}
+    check(not moved, f"{label}: guardrail counters moved: {moved}")
+
+
+def _chaos_engine(cfg, params, mode, **kw):
+    from repro_torch.serve.engine import Engine, ServeConfig
+    return Engine(cfg, params, ServeConfig(batch=BATCH, max_kv=MAX_KV, **kw),
+                  tp=TP, mode=mode)
+
+
+def _free():
+    """Release what the caller dropped (its references go first)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _graph_record(eng):
+    from repro_torch.core.executor import graph_nodes
+    nodes = graph_nodes(eng.graph.graph)
+    return dict(launches=eng.graph.launches, executor_nodes=nodes[0],
+                cooperative=nodes[1], traced=nodes[2])
+
+
+def _guard_costs(device):
+    """The two guards' own host costs, apart from a step: the numeric
+    guard's ``isfinite().all()`` read over BATCH x vocab f32 logits on the
+    card (one sync), and the watchdog's handoff of a no-op to a worker
+    thread and back. Median µs of CHAOS_COST_ITERS."""
+    import concurrent.futures
+    from repro_torch import configs
+    logits = torch.randn(BATCH, configs.get_config(ARCH).vocab,
+                         device=device)
+    out = {}
+    bool(torch.isfinite(logits).all())
+    ts = []
+    for _ in range(CHAOS_COST_ITERS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        bool(torch.isfinite(logits).all())
+        ts.append((time.perf_counter() - t) * 1e6)
+    out["numeric_guard_us"] = float(np.median(ts))
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    pool.submit(lambda: None).result()
+    ts = []
+    for _ in range(CHAOS_COST_ITERS):
+        t = time.perf_counter()
+        pool.submit(lambda: None).result(timeout=CHAOS_TIMEOUT_S)
+        ts.append((time.perf_counter() - t) * 1e6)
+    pool.shutdown()
+    out["watchdog_handoff_us"] = float(np.median(ts))
+    return out
+
+
+def _chaos_guards(cfg, params, prompts, per_step):
+    """(a) every guard armed, no fault, against the same engine unguarded
+    (and each guard alone): explicit, counters 0, the same graph, tokens
+    equal and first-step logits bit-equal; then ms/token of each, the
+    engines' decode loops interleaved over CHAOS_TIME_ROUNDS rounds, each
+    round starting at the next engine."""
+    kws = {"unguarded": {},
+           "guarded": dict(guard_numerics=True,
+                           plan_timeout_s=CHAOS_TIMEOUT_S),
+           "numeric_guard": dict(guard_numerics=True),
+           "watchdog": dict(plan_timeout_s=CHAOS_TIMEOUT_S)}
+    engines, runs = {}, {}
+    for name, kw in kws.items():
+        eng = _chaos_engine(cfg, params, "explicit", **kw)
+        r = _serve(eng, prompts, DECODE)
+        g = _graph_record(eng)
+        check(g == dict(launches=per_step, executor_nodes=per_step,
+                        cooperative=per_step, traced=0),
+              f"chaos (a) {name}: graph {g}, want {per_step} cooperative "
+              f"executor nodes")
+        _healthy(eng, f"chaos (a) {name}")
+        engines[name], runs[name] = eng, dict(graph=g, tokens=r["tokens"],
+                                              first=r["first"])
+    base = runs["unguarded"]
+    for name, r in runs.items():
+        check(np.array_equal(r["tokens"], base["tokens"]),
+              f"chaos (a) {name}: tokens differ from unguarded")
+        check(torch.equal(r["first"], base["first"]),
+              f"chaos (a) {name}: first-step logits not bit-equal")
+    # serving ms/token (a step, the draw and its host read, and each
+    # guard's own work), the engines' loops interleaved
+    times, logits = {name: [] for name in engines}, {}
+    for name, eng in engines.items():
+        logits[name] = eng._run_step(torch.zeros(BATCH, dtype=torch.long,
+                                                 device=eng.device))
+        eng.pos += 1
+    names = list(engines)
+    for k in range(CHAOS_TIME_ROUNDS):
+        # each round starts at another engine: no engine always follows
+        # the same one
+        for name in names[k % len(names):] + names[:k % len(names)]:
+            eng = engines[name]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng.decode(logits[name], num_tokens=CHAOS_TIME_STEPS)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3
+                               / CHAOS_TIME_STEPS)
+    for name, eng in engines.items():
+        _healthy(eng, f"chaos (a) {name} timed")
+    ms = {name: float(np.median(v)) for name, v in times.items()}
+    out = dict(graph=base["graph"], ms_per_token=ms,
+               ms_per_token_rounds=times,
+               guarded_over_unguarded=ms["guarded"] / ms["unguarded"])
+    clean_explicit = dict(tokens=base["tokens"], first=base["first"])
+    engines.clear()
+    _free()
+    return out, clean_explicit
+
+
+def _chaos_faults(cfg, params, prompts, clean_explicit):
+    """(b) each runtime fault fired at the explicit engine's capture: a
+    transient retried (explicit, tokens equal to the clean explicit
+    run's); a persistent one, a poisoned payload under the numeric guard
+    and a stall past the watchdog each falling back at step 0 (tokens
+    and first logits bit-equal to a clean auto engine's, no executor
+    node left), the stalled worker leaving the cache as it was when it
+    wakes. Peak device memory over the persistent case's fallback."""
+    import warnings
+    from repro_torch.core import faults
+    eng = _chaos_engine(cfg, params, "auto")
+    auto = _serve(eng, prompts, DECODE)
+    del eng
+    _free()
+    cases = (("fail_call", faults.FaultSpec("fail_call", count=1), {}),
+             ("fail_call_persistent",
+              faults.FaultSpec("fail_call", count=100), {}),
+             ("corrupt_chunk", faults.FaultSpec("corrupt_chunk", count=1),
+              dict(guard_numerics=True)),
+             ("stall_rank", faults.FaultSpec("stall_rank", count=1,
+                                             delay_s=CHAOS_STALL[1]),
+              dict(plan_timeout_s=CHAOS_STALL[0])))
+    out = {}
+    for name, spec, kw in cases:
+        t0 = time.perf_counter()
+        eng = _chaos_engine(cfg, params, "explicit", **kw)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            with faults.inject(spec) as inj:
+                r = _serve(eng, prompts, DECODE)
+        # no device-wide sync yet: a stalled worker may still capture
+        torch.cuda.current_stream().synchronize()
+        rec = dict(fired=inj.fired, mode=eng.mode, health=dict(eng.health),
+                   warnings=[str(w.message)[:160] for w in warned],
+                   graph=_graph_record(eng),
+                   memory_before_gb=before / 1e9,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        check(inj.fired >= 1, f"chaos (b) {name}: the fault never fired")
+        if name == "fail_call":
+            check(eng.mode == "explicit" and eng.health["retries"] == 1
+                  and eng.health["fallbacks"] == 0,
+                  f"chaos (b) {name}: {rec}")
+            check(np.array_equal(r["tokens"], clean_explicit["tokens"]),
+                  f"chaos (b) {name}: tokens differ from the clean run's")
+            rec["first_bit_equal_clean_explicit"] = bool(
+                torch.equal(r["first"], clean_explicit["first"]))
+        else:
+            check(eng.mode == "auto" and eng.requested_mode == "explicit"
+                  and eng.health["fallbacks"] == 1,
+                  f"chaos (b) {name}: no fallback: {rec}")
+            check(any("falling back to auto" in w for w in rec["warnings"]),
+                  f"chaos (b) {name}: no fallback warning")
+            check(np.array_equal(r["tokens"], auto["tokens"])
+                  and torch.equal(r["first"], auto["first"]),
+                  f"chaos (b) {name}: tokens or first logits differ from "
+                  f"the clean auto engine's")
+            check(rec["graph"]["launches"] == 0
+                  and rec["graph"]["executor_nodes"] == 0,
+                  f"chaos (b) {name}: executor nodes after the fallback: "
+                  f"{rec['graph']}")
+        if name == "fail_call_persistent":
+            check(eng.health["retries"] == 2 and inj.fired == 3,
+                  f"chaos (b) {name}: {rec}")
+        if name == "corrupt_chunk":
+            check(eng.health["faults_detected"] == 1,
+                  f"chaos (b) {name}: {rec}")
+        if name == "stall_rank":
+            check(eng.health["timeouts"] == 1 and len(eng.abandoned) == 1,
+                  f"chaos (b) {name}: {rec}")
+            saved = _snapshot(eng.cache)
+            worker = eng.abandoned[0]
+            rec["worker_done_before_wait"] = worker.done()
+            exc = worker.exception(timeout=4 * CHAOS_STALL[1])
+            torch.cuda.synchronize()
+            rec["worker_ended_with"] = type(exc).__name__
+            check(type(exc).__name__ == "_Abandoned",
+                  f"chaos (b) {name}: the abandoned worker ended with {exc!r}")
+            check(all(torch.equal(a, b) for k in saved
+                      for a, b in zip(eng.cache[k], saved[k])),
+                  f"chaos (b) {name}: the woken worker wrote the cache")
+        rec["seconds"] = time.perf_counter() - t0
+        out[name] = rec
+        del eng, r
+        _free()
+    return out
+
+
+def _drive_faulted(target, trace, step_s, at_tick, spec):
+    """``loadgen.run_load`` on ``target`` with ``spec`` installed once
+    ``at_tick`` ticks have run (cleared at the end): the injector."""
+    from collections import deque
+    from repro_torch.core import faults
+    pending = deque(sorted(trace, key=lambda r: (r.arrival_s, r.rid)))
+    ticks, inj = 0, None
+    try:
+        while pending or target.outstanding():
+            while pending and pending[0].arrival_s <= target.now:
+                target.submit(pending.popleft())
+            if target.n_active == 0 and target.outstanding() == 0 \
+                    and pending:
+                target.advance_to(pending[0].arrival_s)
+                continue
+            if ticks == at_tick:
+                inj = faults.install(spec)
+            info = target.tick()
+            ticks += 1
+            target.advance(step_s * (1 + info.micro_steps))
+    finally:
+        faults.clear()
+    return inj
+
+
+def _chaos_scheduler(cfg, params, label, margin, buckets):
+    """(c) a fault fired in an eager fused prefill step after
+    CHAOS_FAULT_TICK ticks of trace A's first CHAOS_REQUESTS requests:
+    the scheduler warns, counts one fallback, converts its engine's cache
+    and re-runs the step on auto; every stream against the sequential run
+    on the same (now auto) scheduler, at ``margin``; the router names the
+    replica in ``degraded``."""
+    import warnings
+    from repro_torch.core import faults
+    from repro_torch.core.executor import CudaExecutor
+    from repro_torch.serve.router import Router
+    Sched = _serve_scheduler()
+    t0 = time.perf_counter()
+    eng = _serve_engine(cfg, params, "explicit", buckets)
+    sched = Sched(eng, max_slots=BATCH, prefill_chunk=SERVE_CHUNK,
+                  fused_prefill=True, gaps=True)
+    router = Router([sched])
+    trace = _serve_trace(TRACE_A, cfg.vocab)[:CHAOS_REQUESTS]
+    step_s = TRACE_A["step_s"]
+    launches = CudaExecutor.launches
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        inj = _drive_faulted(router, trace, step_s, CHAOS_FAULT_TICK,
+                             faults.FaultSpec("fail_call", count=1))
+    torch.cuda.synchronize()
+    m = router.metrics()
+    rep = router.plan_report()
+    check(inj is not None and inj.fired == 1,
+          f"{label}: the fault did not fire once")
+    check(m["completed"] == len(trace) and m["dropped"] == 0,
+          f"{label}: {m}")
+    check(sched.mode == eng.mode == "auto"
+          and eng.health["fallbacks"] == 1
+          and rep["degraded"] == [0] and rep["modes"] == ["auto"],
+          f"{label}: not one fallback: {rep['modes']} {rep['degraded']} "
+          f"{eng.health}")
+    check(any("falling back to auto" in str(w.message) for w in warned),
+          f"{label}: no fallback warning")
+    check(all(g.launches == 0 for g in sched.graphs.values()),
+          f"{label}: executor nodes in the auto graphs")
+    streams = dict(sched.streams)
+    base = _sequential(sched, trace, step_s)
+    bar = _stream_bar(streams, base, sched.gaps, SERVE_RID, margin, label)
+    if not margin:
+        check(bar["equal"] == len(trace), f"{label}: streams differ from "
+              f"the sequential run")
+    out = dict(fault_tick=CHAOS_FAULT_TICK, requests=len(trace),
+               launches_before_fallback=CudaExecutor.launches - launches,
+               prefill_steps_explicit=sum(
+                   1 for _, _, n, _, _ in sched.prefill_log if n),
+               degraded=rep["degraded"], health=dict(eng.health),
+               vs_sequential=bar, seconds=time.perf_counter() - t0)
+    del router, sched, eng
+    _free()
+    return out
+
+
+def _chaos_launcher():
+    """(d) ``python -m repro_torch.launch.serve`` in-process, explicit at
+    CHAOS_LAUNCH_LAYERS layers: the one-shot path and the router path
+    (2 replicas from one exported plan set)."""
+    import io
+    from repro_torch.launch import serve as launch
+    out = {}
+    common = ["--arch", ARCH, "--tp", str(TP), "--mode", "explicit",
+              "--layers", str(CHAOS_LAUNCH_LAYERS)]
+    for name, extra in (
+            ("one_shot", []),
+            ("router", ["--replicas", "2", "--requests", "8",
+                        "--plan-dir", str(ROOT / "build" / "launch_plans")])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = launch.main(common + extra)
+        lines = buf.getvalue().strip().splitlines()
+        out[name] = dict(rc=rc, lines=lines,
+                         seconds=time.perf_counter() - t0)
+        check(rc == 0, f"launcher {name}: rc {rc}")
+        _free()
+    one, router = out["one_shot"]["lines"], out["router"]["lines"]
+    check(len(one) == 2 and "mode=explicit" in one[0]
+          and one[1].startswith("seq0: ["), f"launcher one-shot: {one}")
+    check(len(router) == 3 and "degraded=[]" in router[0]
+          and "modes=['explicit', 'explicit']" in router[0]
+          and "served 8/8 requests (0 dropped)" in router[1],
+          f"launcher router: {router}")
+    return out
+
+
+def _chaos_unrecoverable(cfg, params, prompts):
+    """(e) four failures that must propagate, counting nothing: a
+    planted kernel build failure (a stand-in ``nvcc`` that fails, an
+    empty build directory, no library loaded) out of ``Engine()``, out of
+    an engine's first step and out of a scheduler's fused prefill step
+    at a new row bucket; a launch the runtime refuses (the executor's
+    launch asks for more blocks a rank than the card keeps resident, so
+    the cooperative launch returns a non-zero ``cudaError_t``) out of a
+    watched, guarded engine's capture and a scheduler's prefill step,
+    the card usable after it; a planted CUDA error
+    (``torch.AcceleratorError`` where this torch has it) out of an
+    engine's capture and a scheduler's prefill step; and the capture's
+    node check (a node count one short) out of an engine's capture."""
+    import os
+    import shutil
+    import repro_torch.core.executor as ex
+    from repro_torch.distributed.step import CaptureError
+    from repro_torch.kernels import build
+    from repro_torch.kernels.build import KernelBuildError, KernelLaunchError
+    from repro_torch.serve.scheduler import Request
+    out = {}
+
+    def propagates(name, exc_type, fn, eng):
+        try:
+            fn()
+        except exc_type as e:
+            out[name] = dict(raised=type(e).__name__,
+                             message=str(e)[:240],
+                             mode=eng.mode if eng is not None else None,
+                             health=dict(eng.health) if eng else None)
+        else:
+            check(False, f"chaos (e) {name}: {exc_type.__name__} did not "
+                  f"propagate")
+        if eng is not None:
+            check(eng.mode == "explicit"
+                  and not any(eng.health[k] for k in CHAOS_COUNTERS),
+                  f"chaos (e) {name}: {eng.mode} {eng.health}")
+
+    def sched_with_prompt():
+        Sched = _serve_scheduler()
+        eng = _serve_engine(cfg, params, "explicit", SERVE_SHORT_BUCKETS)
+        sched = Sched(eng, max_slots=BATCH, prefill_chunk=SERVE_CHUNK,
+                      fused_prefill=True)
+        sched.submit(Request(0, np.arange(1, 40, dtype=np.int32), 4))
+        return sched, eng
+
+    # the planted build failure
+    fake = ROOT / "build" / "chaos_nvcc"
+    (fake / "bin").mkdir(parents=True, exist_ok=True)
+    nvcc = fake / "bin" / "nvcc"
+    nvcc.write_text("#!/bin/sh\necho 'stand-in nvcc: planted failure' >&2\n"
+                    "exit 1\n")
+    nvcc.chmod(0o755)
+    empty = ROOT / "build" / "chaos_empty"
+    shutil.rmtree(empty, ignore_errors=True)
+    empty.mkdir(parents=True)
+    eng = _chaos_engine(cfg, params, "explicit")
+    sched, seng = sched_with_prompt()
+    env = {k: os.environ.get(k) for k in ("CUDA_HOME",
+                                          "REPRO_TORCH_BUILD_DIR")}
+    libs, bound = dict(build._LIBS), dict(build._BOUND)
+    try:
+        build._LIBS.clear()
+        build._BOUND.clear()
+        os.environ["CUDA_HOME"] = str(fake)
+        os.environ["REPRO_TORCH_BUILD_DIR"] = str(empty)
+        propagates("build_engine_init", KernelBuildError,
+                   lambda: _chaos_engine(cfg, params, "explicit"), None)
+        propagates("build_engine_step", KernelBuildError,
+                   lambda: _serve(eng, prompts, 1), eng)
+        propagates("build_scheduler_prefill", KernelBuildError,
+                   sched.tick, seng)
+    finally:
+        build._LIBS.update(libs)
+        build._BOUND.update(bound)
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    del eng, sched, seng
+    _free()
+
+    # a launch the runtime refuses: the executor library's launch asked
+    # for CHAOS_REFUSED_BLOCKS blocks a rank, more than a cooperative
+    # launch keeps resident, so cudaLaunchKernelEx returns an error and
+    # no block runs
+    lib = build.executor_library()
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def dsl_executor_launch(self, *args):
+            args = list(args)
+            args[14] = CHAOS_REFUSED_BLOCKS      # nb, the blocks a rank
+            return lib.dsl_executor_launch(*args)
+
+    eng = _chaos_engine(cfg, params, "explicit", guard_numerics=True,
+                        plan_timeout_s=CHAOS_TIMEOUT_S)
+    sched, seng = sched_with_prompt()
+    library = build.executor_library
+    build.executor_library = lambda: Refusing()
+    try:
+        propagates("launch_refused_engine", KernelLaunchError,
+                   lambda: _serve(eng, prompts, 1), eng)
+        propagates("launch_refused_scheduler_prefill", KernelLaunchError,
+                   sched.tick, seng)
+    finally:
+        build.executor_library = library
+    # the thread that saw the refusal launches the kernel again: the
+    # refusal's error is not left behind for that launch to report
+    from repro_torch.core import algorithms
+    y = torch.randn(TP, 64, 256, device=eng.device)
+    after = ex.CudaExecutor(algorithms.REGISTRY["allreduce_1pa"](TP)) \
+        .prepare(TP)(y)
+    torch.cuda.synchronize()
+    out["card_usable_after_refusal"] = bool(torch.allclose(
+        after, y.sum(0).expand_as(after), atol=1e-4))
+    check(out["card_usable_after_refusal"],
+          "chaos (e): the kernel's next launch after a refused one failed "
+          "or disagrees with the sum")
+    for k in ("launch_refused_engine", "launch_refused_scheduler_prefill"):
+        check("cooperative launch" in out[k]["message"],
+              f"chaos (e) {k}: not the runtime's refusal: "
+              f"{out[k]['message']}")
+    del eng, sched, seng
+    _free()
+
+    # the planted CUDA error
+    accel = getattr(torch, "AcceleratorError", None)
+    msg = "CUDA error: an illegal memory access was encountered (planted)"
+    planted = accel(msg) if accel is not None else RuntimeError(msg)
+    out["cuda_error_type"] = type(planted).__name__
+    eng = _chaos_engine(cfg, params, "explicit", guard_numerics=True,
+                        plan_timeout_s=CHAOS_TIMEOUT_S)
+    sched, seng = sched_with_prompt()
+    launch = ex.CudaExecutor._launch
+
+    def sticky(self, *a, **kw):
+        raise planted
+
+    ex.CudaExecutor._launch = sticky
+    try:
+        propagates("cuda_error_engine", type(planted),
+                   lambda: _serve(eng, prompts, 1), eng)
+        propagates("cuda_error_scheduler_prefill", type(planted),
+                   sched.tick, seng)
+    finally:
+        ex.CudaExecutor._launch = launch
+    del eng, sched, seng
+    _free()
+
+    # the capture's node check
+    eng = _chaos_engine(cfg, params, "explicit")
+    nodes = ex.graph_nodes
+    ex.graph_nodes = lambda g: tuple(max(v - 1, 0) for v in nodes(g))
+    try:
+        propagates("capture_check_engine", CaptureError,
+                   lambda: _serve(eng, prompts, 1), eng)
+    finally:
+        ex.graph_nodes = nodes
+    del eng
+    _free()
+    return out
+
+
+def phase_chaos(device):
+    """Phase 15: the robustness layer on the card (qwen3-1.7b, TP=4,
+    bf16): (a) the guards armed against unguarded; (b) each runtime fault
+    fired at the explicit engine's capture; (c) a mid-stream scheduler
+    fallback in f32 at 4 layers (qwen3-1.7b and hymba-1.5b) and in bf16
+    at full depth; (d) the launcher; (e) the failures that propagate."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config(ARCH)
+    params = tf.init_params(cfg, torch.Generator(device=device)
+                            .manual_seed(31), device=device)
+    prompts = np.random.RandomState(31).randint(
+        0, cfg.vocab, (BATCH, PROMPT)).astype(np.int64)
+    per_step = 2 * cfg.n_layers + 2
+    sec = {}
+    t = time.perf_counter()
+    costs = _guard_costs(device)
+    guards, clean = _chaos_guards(cfg, params, prompts, per_step)
+    sec["a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fault_runs = _chaos_faults(cfg, params, prompts, clean)
+    sec["b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sched = {f"{ARCH} bf16": _chaos_scheduler(
+        cfg, params, f"chaos (c) {ARCH} bf16", SERVE_TIE_MARGIN,
+        SERVE_SEQ_BUCKETS)}
+    del params
+    _free()
+    for arch_cfg, seed in (
+            (dataclasses.replace(cfg, n_layers=CHAOS_F32_LAYERS,
+                                 dtype="float32"), 32),
+            (_hybrid_cfg(CHAOS_F32_LAYERS, dtype="float32"), 33)):
+        p = tf.init_params(arch_cfg, torch.Generator(device=device)
+                           .manual_seed(seed), device=device)
+        label = f"{arch_cfg.name} f32 {CHAOS_F32_LAYERS} layers"
+        sched[label] = _chaos_scheduler(arch_cfg, p, f"chaos (c) {label}", 0.0,
+                                        SERVE_SHORT_BUCKETS)
+        del p
+        _free()
+    sec["c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    launcher = _chaos_launcher()
+    sec["d"] = time.perf_counter() - t
+    t = time.perf_counter()
+    small = dataclasses.replace(cfg, n_layers=CHAOS_F32_LAYERS)
+    p = tf.init_params(small, torch.Generator(device=device).manual_seed(34),
+                       device=device)
+    unrec = _chaos_unrecoverable(small, p, prompts)
+    del p
+    _free()
+    sec["e"] = time.perf_counter() - t
+    emit("chaos", card=RECORD["device"]["nvidia_smi"], arch=ARCH,
+         n_layers=cfg.n_layers, tp=TP, batch=BATCH, prompt=PROMPT,
+         decode=DECODE, guard_costs=costs, guards=guards,
+         faults=fault_runs, scheduler=sched, launcher=launcher,
+         unrecoverable=unrec, stall=list(CHAOS_STALL),
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         seconds_by_part=sec, seconds=time.perf_counter() - t0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,8,9,10,11,12,13,14",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default 1-6 and "
-                         "8-14; 7 profiles a decode step)")
+                         "8-15; 7 profiles a decode step)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -4756,6 +5370,8 @@ def main(argv=None) -> int:
         serve = phase_serve(device, gen)
     if 14 in phases:
         api = phase_api(device, gen)
+    if 15 in phases:
+        phase_chaos(device)
     kernels = []
     if timing is not None:
         # each main path's per-step launch mix at full occupancy (every

@@ -43,22 +43,34 @@ stride``, :func:`repro_torch.mesh.group_ranks`): the per-axis phases of a
 hierarchical plan on a node-major rank grid. The kernel runs every group
 in one launch, reading strided groups in place; the plain version runs
 the groups one after another.
+
+Both consult the chaos hook (:func:`repro_torch.core.faults.active`, one
+read a call) before anything else. The reference's executors consult it
+at trace time; the port's trace time is the CUDA-graph capture: on the
+card Python runs an executor call only in a step's warm-ups, its
+capture and an eager fused prefill step, so a graph replay pays nothing
+and a fault fires into the captured graph, never into a replay.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import threading
 import weakref
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import faults
 from repro_torch.core.dsl import IndexExpr, Instr, Op, Program, full_fanout
+from repro_torch.kernels.build import KernelLaunchError
 from repro_torch.mesh import group_ranks
 
 __all__ = ["TorchExecutor", "CudaExecutor", "EncodedProgram", "encode",
-           "execute", "graph_nodes", "device_timer", "OPCODES", "FIELDS"]
+           "execute", "graph_nodes", "device_timer", "CaptureScope",
+           "capture_scope", "OPCODES", "FIELDS"]
 
 
 # ---------------------------------------------------------------------------
@@ -356,6 +368,9 @@ class TorchExecutor:
         if x.dim() != 3:
             raise ValueError(f"expected a rank-stacked (n, rows, cols) "
                              f"payload, got shape {tuple(x.shape)}")
+        inj = faults.active()
+        if inj is not None:       # chaos hook (core/faults.py)
+            x = inj.on_execute(x)
         from repro_torch.core import trace as trace_mod
         col = trace_mod.active()
         if col is not None:       # profiler hook: one group's timeline
@@ -694,6 +709,38 @@ def _dtype_str(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+class CaptureScope:
+    """What this thread launched into the graph it is capturing: the
+    executor ``launches`` made into it, and the (executor, shape)
+    ``marks`` of every shape first launched into a capture there."""
+
+    def __init__(self):
+        self.launches = 0
+        self.marks: list = []
+
+    def discard(self) -> None:
+        """Take the marks back (the capture failed: its graph is gone, so
+        those bindings may be re-bound)."""
+        for ex, key in self.marks:
+            ex._captured.discard(key)
+        self.marks.clear()
+
+
+_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def capture_scope():
+    """The :class:`CaptureScope` of one capture on this thread, current
+    until the block ends: a capture in another thread keeps its own."""
+    scope, prev = CaptureScope(), getattr(_SCOPE, "scope", None)
+    _SCOPE.scope = scope
+    try:
+        yield scope
+    finally:
+        _SCOPE.scope = prev
+
+
 def _capturing() -> bool:
     """Whether the current CUDA stream is capturing a graph."""
     return (torch.cuda.is_initialized()
@@ -762,27 +809,27 @@ class CudaExecutor:
     def _bind(self, rows, cols, dtype, device, groups) -> "CudaExecutor":
         enc = self.encoded
         if enc is None:
-            raise RuntimeError("CudaExecutor.bind before prepare(n)")
+            raise KernelLaunchError("CudaExecutor.bind before prepare(n)")
         if dtype not in _DTYPE_CODES:
-            raise ValueError(f"CudaExecutor takes {list(_DTYPE_CODES)}, "
-                             f"got {dtype}")
+            raise KernelLaunchError(f"CudaExecutor takes "
+                                    f"{list(_DTYPE_CODES)}, got {dtype}")
         if _capturing():
-            raise RuntimeError(
+            raise KernelLaunchError(
                 f"CudaExecutor for {self.program.name!r} binds inside a CUDA "
                 f"graph capture (host copies and an occupancy query): run "
                 f"the plan once at this shape before capturing it")
         key = (rows, cols, dtype, device, groups)
         if key in self._captured:
-            raise RuntimeError(
+            raise KernelLaunchError(
                 f"CudaExecutor for {self.program.name!r} re-binds a shape "
                 f"that a CUDA graph captured: the graph replays its flags, "
                 f"epoch words and scratch")
         p = self.program
         n = enc.n
         if groups < 1 or groups * n > MAX_RANKS:
-            raise ValueError(f"{groups} groups of {n} ranks: the CUDA "
-                             f"executor runs at most {MAX_RANKS} ranks per "
-                             f"launch")
+            raise KernelLaunchError(f"{groups} groups of {n} ranks: the CUDA "
+                                    f"executor runs at most {MAX_RANKS} "
+                                    f"ranks per launch")
         scratch = [torch.empty((groups * n, p.chunks[b] * rows, cols),
                                dtype=dtype, device=device)
                    for b in enc.buffers[2:]]
@@ -809,6 +856,9 @@ class CudaExecutor:
             raise ValueError(
                 f"CudaExecutor runs CUDA tensors only, got a tensor on "
                 f"{x.device}; use backend='torch' for the plain version")
+        inj = faults.active()
+        if inj is not None:       # chaos hook: at a capture, not a replay
+            x = inj.on_execute(x)
         from repro_torch.core import trace as trace_mod
         col = trace_mod.active()
         if col is not None:       # profiler hook: the traced kernel on x
@@ -935,7 +985,7 @@ class CudaExecutor:
             THREADS, stamps.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
         if rc != 0:
-            raise RuntimeError(
+            raise KernelLaunchError(
                 f"traced dsl_executor launch failed for {p.name!r} (n={n}): "
                 f"{lib.dsl_executor_error_string(rc).decode()}")
         CudaExecutor.traced_launches += 1
@@ -956,7 +1006,7 @@ class CudaExecutor:
                 stride: int = 1) -> torch.Tensor:
         enc = self.encoded
         if enc is None:
-            raise RuntimeError("CudaExecutor called before prepare(n)")
+            raise KernelLaunchError("CudaExecutor called before prepare(n)")
         p = self.program
         if x.dim() != 3 or x.shape[0] != groups * enc.n:
             raise ValueError(f"expected ({groups} * {enc.n}, rows, cols), "
@@ -976,8 +1026,12 @@ class CudaExecutor:
             self._bound = self._bindings[key]
         else:
             self._bind(rows, cols, x.dtype, x.device, groups)
-        if _capturing():
+        capturing = _capturing()
+        scope = getattr(_SCOPE, "scope", None) if capturing else None
+        if capturing and key not in self._captured:
             self._captured.add(key)
+            if scope is not None:
+                scope.marks.append((self, key))
         (_, _, dtype, device, _, scratch, flags, group_flags, ops,
          opnds, blocks, epochs) = self._bound
         x = x.contiguous()
@@ -997,11 +1051,13 @@ class CudaExecutor:
             enc.n_flags, group_flags, epochs.data_ptr(), chunk_elems, blocks,
             THREADS, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
-            raise RuntimeError(
+            raise KernelLaunchError(
                 f"dsl_executor launch failed for {p.name!r} (n={n}, "
                 f"groups={groups}): "
                 f"{lib.dsl_executor_error_string(rc).decode()}")
         CudaExecutor.launches += 1
+        if scope is not None:
+            scope.launches += 1
         return out
 
 

@@ -299,7 +299,10 @@ inline int launch_clusters(const void* fn, int n, long long grid, int threads, i
   cfg.attrs = attrs;
   cfg.numAttrs = 2;
   cudaError_t err = cudaLaunchKernelExC(&cfg, fn, args);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // the refusal is returned, not left for the next launch
+    return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -624,7 +624,10 @@ inline int launch(const void* fn, int threads, size_t smem, long long items, A& 
   void* kargs[] = {&args};
   e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(threads), kargs, smem,
                                   static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // the refusal is returned, not left for the next launch
+    return static_cast<int>(e);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

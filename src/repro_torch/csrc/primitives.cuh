@@ -349,7 +349,10 @@ inline int launch_cooperative(const void* fn, int blocks, int threads, void** ar
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelExC(&cfg, fn, args);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // the refusal is returned, not left for the next launch
+    return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

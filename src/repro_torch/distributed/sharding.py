@@ -20,15 +20,25 @@ rank axis, and that axis either holds each rank's shard or a replica.
 * ``wk``/``wv``, the norms and the KV cache are replicated — every rank
   computes the same new K/V token, so the replicated cache stays
   consistent without a gather.
+
+:func:`auto_decode_params` and :func:`auto_decode_cache` undo the layout
+(the serving guardrails' explicit→auto fallback, where the reference
+reshards under ``in_shardings``): sharded leaves joined in rank order,
+replicated ones taken from rank 0, the SSM state's rank shards joined
+along ``d_inner``. Every leaf is a new tensor, so the explicit tree can
+be freed (or keep being written by an abandoned step) without touching
+the result.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.mesh import RankAxis
 from repro_torch.models.blocks import padded_heads
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["explicit_decode_supported", "explicit_decode_params",
-           "SHARD_DIMS"]
+           "auto_decode_params", "auto_decode_cache", "SHARD_DIMS"]
 
 #: per-layer leaf -> the axis (of the ``(groups, ...)`` leaf) split over
 #: TP; leaves not listed are replicated
@@ -113,3 +123,52 @@ def explicit_decode_params(params: dict, cfg: ModelConfig,
         out["unembed"] = (axis.shard(params["unembed"], 1) if vocab_split
                           else axis.replicate(params["unembed"]))
     return out
+
+
+def _unshard(x, dim: int):
+    """Inverse of :func:`_shard_layer_leaf` and ``RankAxis.shard`` for a
+    rank-stacked leaf split on ``dim`` of the unstacked leaf: the ranks'
+    blocks joined in rank order (a new tensor)."""
+    return x.movedim(0, dim).flatten(dim, dim + 1).clone(
+        memory_format=torch.contiguous_format)
+
+
+def auto_decode_params(params: dict, cfg: ModelConfig) -> dict:
+    """The reference (auto) layout of rank-stacked explicit params —
+    the inverse of :func:`explicit_decode_params`, exact (pure data
+    movement), on the same device. Padded heads stay: the reference
+    layout holds them too (``blocks.padded_heads``, masked to zero)."""
+    n = params["ln_f"].shape[0]
+    vocab_split = cfg.vocab % n == 0
+
+    def layer(slot: dict) -> dict:
+        out = {}
+        for k, v in slot.items():
+            if isinstance(v, dict):
+                out[k] = {kk: (_unshard(vv, SHARD_DIMS[(k, kk)])
+                               if (k, kk) in SHARD_DIMS else vv[0].clone())
+                          for kk, vv in v.items()}
+            else:
+                out[k] = v[0].clone()
+        return out
+
+    out = {
+        "embed": (_unshard(params["embed"], 0) if vocab_split
+                  else params["embed"][0].clone()),
+        "ln_f": params["ln_f"][0].clone(),
+        "layers": [layer(slot) for slot in params["layers"]],
+    }
+    if "unembed" in params:
+        out["unembed"] = (_unshard(params["unembed"], 1) if vocab_split
+                          else params["unembed"][0].clone())
+    return out
+
+
+def auto_decode_cache(cache: dict) -> dict:
+    """The auto layout of an explicit decode cache (``init_cache(...,
+    ranks=n)``): rank 0's copy of the replicated KV leaves and their
+    int8 scales, the SSM state's rank shards ``(n, groups, b, d/n,
+    state)`` joined along ``d`` into ``(groups, b, d, state)``."""
+    return {name: [(_unshard(leaf, 2) if name == "ssm" else leaf[0].clone())
+                   for leaf in leaves]
+            for name, leaves in cache.items()}

@@ -42,7 +42,8 @@ __all__ = ["local_batch", "slot_buckets", "seq_bucket_rows",
            "compile_decode_plans", "TPDecodeComms", "make_serve_step",
            "make_sched_step", "make_prefill_sched_step", "cache_rows",
            "capture_serve_step", "capture_sched_step", "CapturedStep",
-           "CapturedSchedStep", "make_prefill_step", "StepLayout"]
+           "CapturedSchedStep", "CaptureError", "make_prefill_step",
+           "StepLayout"]
 
 
 def local_batch(axis: RankAxis, batch: int) -> tuple[int, bool]:
@@ -388,7 +389,14 @@ class CapturedSchedStep:
         return self.logits
 
 
-def _capture(run, device, *, reset=None, pool=None):
+class CaptureError(RuntimeError):
+    """A captured graph is not the step it should hold (its executor
+    kernel nodes are not the launches made into it, each cooperative, or
+    it holds a traced node). Never transient: the serving guardrails
+    re-raise it rather than retry it or fall back from the kernel."""
+
+
+def _capture(run, device, *, reset=None, pool=None, check=None):
     """Capture ``run()`` once in a CUDA graph: it first runs
     :data:`WARMUP_STEPS` times on a side stream (binding every plan's
     :class:`~repro_torch.core.executor.CudaExecutor`, uploading the RoPE
@@ -399,59 +407,105 @@ def _capture(run, device, *, reset=None, pool=None):
     fallback. So does a graph whose executor kernel nodes are not the
     launches made into it, each with the cooperative attribute (its
     blocks spin on each other), or that holds a node of the traced
-    kernel. Returns (graph, run's output,
-    launches captured)."""
+    kernel (:class:`CaptureError`). Returns (graph, run's output,
+    launches captured).
+
+    The capture is the port's trace time: the warm-ups run with the
+    chaos hook suspended (``faults.suspended``), so a runtime fault
+    fires into the graph. The capture runs in ``thread_local`` mode, and
+    nothing here synchronizes the whole device, so a watchdog's worker
+    thread may capture while another thread keeps working (and
+    captures). ``check()``, when given, runs before every warm-up step,
+    before ``reset``, before the capture and before the instantiation
+    (a watchdog's abandoned worker raises there and touches nothing
+    more). A capture that raises leaves nothing behind: ``reset`` has
+    run after any warm-up step that ran, the stream is no longer
+    capturing, the half-made graph is dropped and the executors' marks
+    of shapes launched into it are taken back (its own, kept in this
+    thread's :func:`~repro_torch.core.executor.capture_scope`, which
+    also counts the launches made into it)."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"steps are captured in CUDA graphs on a CUDA "
                          f"device; got {device} (run the step eagerly "
                          f"there)")
-    from repro_torch.core.executor import CudaExecutor, graph_nodes
+    from repro_torch.core import faults
+    from repro_torch.core.executor import capture_scope, graph_nodes
+    check = check or (lambda: None)
     stream = torch.cuda.Stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
     with torch.inference_mode(), torch.cuda.stream(stream):
-        for _ in range(WARMUP_STEPS):
-            run()
-        if reset is not None:
-            reset()
+        try:
+            with faults.suspended():
+                for _ in range(WARMUP_STEPS):
+                    check()
+                    run()
+            check()
+        finally:
+            if reset is not None:
+                reset()
     torch.cuda.current_stream(device).wait_stream(stream)
-    torch.cuda.synchronize(device)
+    stream.synchronize()
+    check()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    before = CudaExecutor.launches
-    with torch.inference_mode(), torch.cuda.graph(graph, stream=stream,
-                                                  pool=pool):
-        out = run()
-    captured = CudaExecutor.launches - before
-    if captured:
-        nodes, cooperative, traced = graph_nodes(graph)
-        if not nodes == cooperative == captured or traced:
-            raise RuntimeError(
-                f"the captured step holds {nodes} executor kernel nodes, "
-                f"{cooperative} of them cooperative, and {traced} traced "
-                f"nodes, for {captured} launches made into the capture")
+    with capture_scope() as scope:
+        try:
+            # what ``torch.cuda.graph`` does, less its device-wide
+            # synchronize and cache flush on entry: neither is allowed in
+            # one thread while another thread captures
+            with torch.inference_mode(), torch.cuda.stream(stream):
+                graph.capture_begin(*(() if pool is None else (pool,)),
+                                    capture_error_mode="thread_local")
+                try:
+                    out = run()
+                finally:
+                    graph.capture_end()
+            captured = scope.launches
+            if captured:
+                nodes, cooperative, traced = graph_nodes(graph)
+                if not nodes == cooperative == captured or traced:
+                    raise CaptureError(
+                        f"the captured step holds {nodes} executor kernel "
+                        f"nodes, {cooperative} of them cooperative, and "
+                        f"{traced} traced nodes, for {captured} launches "
+                        f"made into the capture")
+            check()
+        except BaseException:
+            scope.discard()
+            del graph
+            raise
     graph.instantiate()
     return graph, out, captured
 
 
 def capture_serve_step(step, params, cache, *, batch: int,
-                       device: DeviceLike) -> CapturedStep:
+                       device: DeviceLike, keep_cache: bool = False,
+                       check=None) -> CapturedStep:
     """Capture ``step(params, cache, tokens, pos)`` (from
     :func:`make_serve_step`) once in a CUDA graph over static ``tokens``
     ``(batch,)`` and 0-d ``pos`` buffers (:func:`_capture`). The cache
-    (and its int8 scales) is zeroed after the warm-up steps. The graph
-    reads ``params`` and writes ``cache`` in place, so both must stay
-    where they are while it lives."""
+    (and its int8 scales) is zeroed after the warm-up steps, or, with
+    ``keep_cache`` (a capture mid-stream, after a fallback), put back as
+    it was before them. The graph reads ``params`` and writes ``cache``
+    in place, so both must stay where they are while it lives.
+    ``check`` goes to :func:`_capture`."""
     device = torch.device(device)
     tokens = torch.zeros(batch, dtype=torch.long, device=device)
     pos = torch.zeros((), dtype=torch.long, device=device)
+    saved = ({k: [leaf.clone() for leaf in v] for k, v in cache.items()}
+             if keep_cache else None)
 
-    def zero():
-        for leaves in cache.values():
-            for leaf in leaves:
-                leaf.zero_()
+    def reset():
+        for name, leaves in cache.items():
+            for j, leaf in enumerate(leaves):
+                if saved is None:
+                    leaf.zero_()
+                else:
+                    leaf.copy_(saved[name][j])
 
     graph, (logits, _), captured = _capture(
-        lambda: step(params, cache, tokens, pos), device, reset=zero)
+        lambda: step(params, cache, tokens, pos), device, reset=reset,
+        check=check)
     return CapturedStep(graph, tokens, pos, logits, captured)
 
 

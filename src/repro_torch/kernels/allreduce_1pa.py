@@ -148,11 +148,12 @@ def _prepare(lib, code: int, use_ll: bool, n: int, geo: Geometry,
     what = (f"{KERNEL}: a cluster of {n} blocks of {comm_utils.THREADS} "
             f"threads and {geo.smem_bytes} bytes of shared memory")
     if rc != 0:
-        raise RuntimeError(
+        raise comm_utils.KernelLaunchError(
             f"{what}: {lib.allreduce_1pa_error_string(rc).decode()}")
     if clusters.value < 1:
-        raise RuntimeError(f"{what} is not schedulable on {x.device} "
-                           f"(cudaOccupancyMaxActiveClusters: 0)")
+        raise comm_utils.KernelLaunchError(
+            f"{what} is not schedulable on {x.device} "
+            f"(cudaOccupancyMaxActiveClusters: 0)")
     _PREPARED.add(key)
 
 

@@ -20,7 +20,8 @@ import subprocess
 import time
 from typing import Dict, List, Optional
 
-__all__ = ["CSRC", "build_dir", "nvcc", "build_all", "executor_library",
+__all__ = ["CSRC", "KernelBuildError", "KernelLaunchError", "build_dir",
+           "nvcc", "build_all", "executor_library",
            "allreduce_1pa_library", "allpairs_2pa_library",
            "allgather_ring_library", "alltoall_library",
            "flash_attention_library", "allreduce_2ph_library",
@@ -37,6 +38,20 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _BOUND: Dict[str, ctypes.CDLL] = {}      # libraries whose argtypes are set
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel library could not be built (no ``nvcc``, or ``nvcc``
+    refused a source). Never transient: the serving guardrails re-raise
+    it rather than retry it or fall back from the kernel."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A hand-written kernel's wrapper could not launch it: the runtime
+    refused the launch (its ``cudaError_t`` is in the message), or the
+    wrapper refused its input or its state. Never transient: the serving
+    guardrails re-raise it rather than retry it or fall back from the
+    kernel."""
+
+
 def build_dir() -> pathlib.Path:
     return pathlib.Path(os.environ.get("REPRO_TORCH_BUILD_DIR",
                                        _REPO / "build"))
@@ -47,9 +62,9 @@ def nvcc() -> str:
     cand = pathlib.Path(cuda_home) / "bin" / "nvcc"
     found = str(cand) if cand.exists() else shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
-                           "kernels build only on a machine with the CUDA "
-                           "toolkit")
+        raise KernelBuildError("nvcc not found (set CUDA_HOME); the CUDA "
+                               "kernels build only on a machine with the "
+                               "CUDA toolkit")
     return found
 
 
@@ -65,7 +80,8 @@ def _target(src: pathlib.Path) -> pathlib.Path:
 def build_all(sources: Optional[List[str]] = None) -> Dict[str, pathlib.Path]:
     """Compile every ``csrc/*.cu`` (or the named stems) that has no
     up-to-date library, one ``nvcc`` per source, all started together.
-    Raises with the compiler's output when one fails."""
+    Raises :class:`KernelBuildError` with the compiler's output when one
+    fails."""
     srcs = sorted(CSRC.glob("*.cu"))
     if sources is not None:
         srcs = [s for s in srcs if s.stem in sources]
@@ -87,7 +103,7 @@ def build_all(sources: Optional[List[str]] = None) -> Dict[str, pathlib.Path]:
     for src, target, tmp, t0, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+            raise KernelBuildError(f"nvcc failed on {src.name}:\n{log}")
         os.replace(tmp, target)
         last_build[src.stem] = dict(seconds=time.perf_counter() - t0,
                                     log=log, path=str(target))

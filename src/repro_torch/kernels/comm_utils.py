@@ -16,6 +16,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.build import KernelLaunchError
+
 __all__ = ["check_2d", "ring_neighbors", "resolve_backend",
            "check_kernel_input", "blocks_per_rank", "Workspace", "workspace",
            "check_launch", "LAUNCHES", "MAX_RANKS", "THREADS"]
@@ -136,9 +138,11 @@ def workspace(kernel: str, x: torch.Tensor,
 
 def check_launch(rc: int, error_string: Callable[[int], bytes],
                  kernel: str, x: torch.Tensor) -> None:
-    """Raise with the runtime's message (``error_string(rc)``) if the
-    launch failed; count it otherwise."""
+    """Raise :class:`~repro_torch.kernels.build.KernelLaunchError` with
+    the runtime's message (``error_string(rc)``) if the launch failed;
+    count it otherwise."""
     if rc != 0:
-        raise RuntimeError(f"{kernel} launch failed for {tuple(x.shape)} "
-                           f"{x.dtype}: {error_string(rc).decode()}")
+        raise KernelLaunchError(f"{kernel} launch failed for "
+                                f"{tuple(x.shape)} {x.dtype}: "
+                                f"{error_string(rc).decode()}")
     LAUNCHES[kernel] += 1

@@ -205,9 +205,15 @@ def _cached_layers(params, cfg: ModelConfig, cache, x, comms, attend,
     ``x`` (…, b, s, d): ``attend(p, h, cache_k, cache_v, window,
     head_offset, k_scale, v_scale)`` is the layer's cache-writing
     attention, ``ssm_step(p, h, state, d_offset) -> (out, new_state)``
-    the hybrid family's SSM branch, whose state is written back with
-    ``copy_``. See :func:`decode_step` for ``comms``."""
+    the hybrid family's SSM branch. Returns ``x`` and the SSM write-backs
+    ``[(state, new_state), ...]``, which the caller applies
+    (:func:`_write_back`) after its step's last executor call: a step
+    that raises part-way leaves the recurrent state as it found it, so
+    its re-run reads what the first attempt read (the KV writes are
+    idempotent: a re-run writes the same entries before it reads them).
+    See :func:`decode_step` for ``comms``."""
     ranked = comms is not None
+    writes = []
     for g in range(n_groups(cfg)):
         for i, win in enumerate(layer_windows(cfg)):
             lp = _group(params["layers"][i], g, ranked)
@@ -224,7 +230,7 @@ def _cached_layers(params, cfg: ModelConfig, cache, x, comms, attend,
                 d_off = (comms.ssm_offset(lp["ssm"]["a_log"].shape[-2])
                          if ranked else None)
                 s_out, s_new = ssm_step(lp["ssm"], h, state, d_off)
-                state.copy_(s_new)
+                writes.append((state, s_new))
                 if ranked:
                     # its own replay, as in the reference: attention and
                     # SSM partials complete apart, then average
@@ -243,7 +249,12 @@ def _cached_layers(params, cfg: ModelConfig, cache, x, comms, attend,
                 if ranked:
                     mlp_out = comms.hidden(mlp_out)   # down-proj partial
             x = x + mlp_out
-    return x
+    return x, writes
+
+
+def _write_back(writes) -> None:
+    for state, new in writes:
+        state.copy_(new)
 
 
 def _check_explicit_moe(cfg: ModelConfig, comms) -> None:
@@ -268,7 +279,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, comms=None,
     Returns (logits (b, vocab) f32, cache) — the cache (with an int8
     cache its ``k_scale``/``v_scale`` too, for the hybrid family its SSM
     state) is updated in place and returned for the reference's calling
-    convention.
+    convention. The SSM state is written last, after the logits gather,
+    so a step that raises part-way can be re-run from where it started.
 
     ``comms`` — the explicit-TP hook (``distributed.step.TPDecodeComms``):
     params and cache arrive rank-stacked, the per-layer hidden-state
@@ -312,11 +324,13 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, comms=None,
             new = torch.where(active[:, None, None], new, state)
         return out, new
 
-    x = _cached_layers(params, cfg, cache, x, comms, attend, ssm_step)
+    x, writes = _cached_layers(params, cfg, cache, x, comms, attend,
+                               ssm_step)
     h = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    if ranked:
-        return comms.logits(params, h), cache
-    return logits_fn(params, cfg, h)[:, 0], cache
+    logits = (comms.logits(params, h) if ranked
+              else logits_fn(params, cfg, h)[:, 0])
+    _write_back(writes)
+    return logits, cache
 
 
 def prefill_step(params, cfg: ModelConfig, cache, tokens, pos, n_tok, *,
@@ -357,5 +371,6 @@ def prefill_step(params, cfg: ModelConfig, cache, tokens, pos, n_tok, *,
     def ssm_step(p, h, state, d_off):
         return ssm.ssm_prefill_scan(p, h, state, cfg, n_tok, d_offset=d_off)
 
-    _cached_layers(params, cfg, cache, x, comms, attend, ssm_step)
+    _write_back(_cached_layers(params, cfg, cache, x, comms, attend,
+                               ssm_step)[1])
     return cache

@@ -166,9 +166,9 @@ class Router:
         """Fleet plan/health view: per-replica reports, summed health
         counters, the per-replica modes, and a ``degraded`` list naming
         every replica whose running mode diverged from its requested
-        mode (the reference's explicit→auto fallbacks; the port raises
-        instead, so it stays empty), so a degraded replica is visible at
-        the router without reading N engines."""
+        mode (an explicit→auto fallback, at build time or mid-stream), so
+        a degraded replica is visible at the router without reading N
+        engines."""
         reps = [r.plan_report() for r in self.replicas]
         health: Dict[str, int] = {}
         for rep in reps:

@@ -47,8 +47,18 @@ takes the caller's clock (the load generator charges each tick ``step_s
 * (1 + micro_steps)``), so traces replay exactly and the metrics are
 reproducible.
 
-The reference's explicit→auto fallback is not ported: a failing step
-raises, and ``plan_report()['degraded']`` stays False.
+The reference's explicit→auto fallback: an explicit step or fused
+prefill step that fails degrades the scheduler (and its engine) to auto
+— a warning, one more ``fallbacks`` in the engine's health, every slot
+bucket's graph and step dropped, the engine's params and cache converted
+to the unsharded layout (the scheduler's cache views follow, on purpose),
+the auto graphs captured on the card — and re-runs the step there from
+its pre-step state (the SSM state is written after a step's last
+executor call; the KV writes are idempotent). ``plan_report()
+['degraded']`` then names it, and the router lists the replica. A kernel
+build or launch failure, a captured graph that is not the step and a
+CUDA error (``serve.engine.unrecoverable``; on the card every failure
+but an injected fault) raise instead.
 """
 from __future__ import annotations
 
@@ -65,6 +75,7 @@ import torch
 from repro_torch.distributed import step as step_mod
 from repro_torch.models import transformer as tf
 from repro_torch.serve import sampling
+from repro_torch.serve.engine import unrecoverable
 
 __all__ = ["Request", "Emission", "TickInfo", "Scheduler",
            "AsyncServeEngine"]
@@ -269,16 +280,22 @@ class Scheduler:
                         "inserts": 0}
         self.graphs: Dict[int, step_mod.CapturedSchedStep] = {}
         if self.device.type == "cuda":
-            pool = torch.cuda.graph_pool_handle()
-            for b in self._buckets:
-                self.graphs[b] = step_mod.capture_sched_step(
-                    self._step_fn(b), engine.params,
-                    step_mod.cache_rows(self.cache, b), batch=b,
-                    device=self.device, pool=pool)
+            self._capture_graphs()
             for leaves in self.cache.values():
                 for leaf in leaves:
                     leaf.zero_()
         self._ptrs = self._leaf_ptrs()
+
+    def _capture_graphs(self) -> None:
+        """On the card, capture the decode step at every slot bucket, all
+        graphs in one memory pool (the warm-ups run with every row
+        inactive, so a live cache passes through them)."""
+        pool = torch.cuda.graph_pool_handle()
+        for b in self._buckets:
+            self.graphs[b] = step_mod.capture_sched_step(
+                self._step_fn(b), self.eng.params,
+                step_mod.cache_rows(self.cache, b), batch=b,
+                device=self.device, pool=pool)
 
     # -- clock (virtual; the caller owns it) -------------------------------
     @property
@@ -393,12 +410,43 @@ class Scheduler:
                 stepped.append(s)
         return b, torch.from_numpy(inputs), stepped
 
+    def _fallback(self, e: Exception, what: str) -> None:
+        """The reference's scheduler fallback, or ``e`` re-raised (auto
+        has no further fallback; :func:`~repro_torch.serve.engine.
+        unrecoverable` failures never fall back)."""
+        if self.mode == "auto" or unrecoverable(e, self.device):
+            raise e
+        warnings.warn(f"explicit {what} failed ({e}); falling back to auto "
+                      f"(the unsharded step) for the remainder of serving",
+                      stacklevel=3)
+        self.eng.health["fallbacks"] += 1
+        self.mode = "auto"
+        self.graphs = {}
+        self._steps.clear()
+        self._prefill_steps.clear()
+        self.eng._to_auto()
+        # the converted cache replaces the old one on purpose: the views,
+        # and the pointers _check_leaves holds, follow it
+        self.cache = step_mod.cache_rows(self.eng.cache, self.max_slots)
+        self._ptrs = self._leaf_ptrs()
+        if self.device.type == "cuda":
+            self._capture_graphs()
+
     def run_step(self, b: int, inputs: torch.Tensor, *,
                  graph: Optional[bool] = None) -> torch.Tensor:
         """The step at bucket ``b`` on the ``(3, b)`` inputs, by replay of
         the bucket's graph or eagerly: (b, vocab) f32 logits on the
-        device (a graph's static output, valid until its next replay)."""
+        device (a graph's static output, valid until its next replay).
+        An explicit step that fails falls back (:meth:`_fallback`) and
+        runs again on auto."""
         self._check_leaves()
+        try:
+            return self._run_step(b, inputs, graph)
+        except Exception as e:
+            self._fallback(e, "scheduler step")
+        return self._run_step(b, inputs, graph)
+
+    def _run_step(self, b, inputs, graph):
         graph = bool(self.graphs) if graph is None else graph
         with torch.inference_mode():
             if graph:
@@ -468,8 +516,17 @@ class Scheduler:
 
     def run_prefill(self, b: int, S: int, inputs: torch.Tensor) -> None:
         """The fused prefill micro-step at ``(b, S)``, eagerly (on the
-        card it launches the executor kernel at the ``b·S`` bucket)."""
+        card it launches the executor kernel at the ``b·S`` bucket). An
+        explicit step that fails falls back (:meth:`_fallback`) and runs
+        again on auto."""
         self._check_leaves()
+        try:
+            return self._run_prefill(b, S, inputs)
+        except Exception as e:
+            self._fallback(e, "fused-prefill step")
+        self._run_prefill(b, S, inputs)
+
+    def _run_prefill(self, b, S, inputs):
         x = inputs.to(self.device)
         with torch.inference_mode():
             self._prefill_fn(b, S)(
@@ -709,10 +766,9 @@ class Scheduler:
 
     def plan_report(self) -> dict:
         """The engine's plan and health report plus the scheduler's view:
-        ``degraded`` flags a mode that left the requested one (never,
-        here: the port raises where the reference falls back), and
-        ``graphs`` the executor launches captured and the replays of
-        each slot bucket's graph."""
+        ``degraded`` flags a mode that left the requested one (an
+        explicit→auto fallback), and ``graphs`` the executor launches
+        captured and the replays of each slot bucket's graph."""
         rep = self.eng.plan_report()
         rep["mode"] = self.mode
         rep["degraded"] = self.mode != self.eng.requested_mode

@@ -145,10 +145,14 @@ def test_plan_set_mismatch_raises(tmp_path):
     c = Communicator("model", n=2, device="cpu")
     plans = {"layer_allreduce": c.plan_for("all_reduce", (4, 64),
                                            "float32", buckets=(4,))}
-    with pytest.raises(ValueError, match="d_model"):
-        Engine(cfg, tf.init_params(cfg, device="cpu"),
-               ServeConfig(batch=4, max_kv=16), tp=2, device="cpu",
-               mode="explicit", decode_plans=plans)
+    # the engine rejects the set as the reference's does: a warning
+    # naming the mismatch, then auto, counted as a fallback
+    with pytest.warns(UserWarning, match="d_model"):
+        eng = Engine(cfg, tf.init_params(cfg, device="cpu"),
+                     ServeConfig(batch=4, max_kv=16), tp=2, device="cpu",
+                     mode="explicit", decode_plans=plans)
+    assert (eng.mode, eng.requested_mode) == ("auto", "explicit")
+    assert eng.health["fallbacks"] == 1 and eng.decode_plans == {}
 
 
 def test_backends_follow_the_device():

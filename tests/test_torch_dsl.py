@@ -14,7 +14,7 @@ from repro.core import verify as ref_verify
 from repro_torch.core import algorithms, dsl, passes, selector, verify
 
 NAMES = sorted(algorithms.REGISTRY)
-GRID = [(name, n, lvl) for name in NAMES for n in (2, 4, 8)
+GRID = [(name, n, lvl) for name in NAMES for n in (2, 4, 8, 16)
         for lvl in range(4)]
 
 COLLECTIVE = {

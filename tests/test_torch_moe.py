@@ -290,10 +290,13 @@ def test_reference_moe_plan_set_loads_and_replays(tmp_path, tp):
     assert eng.comm.stats["compiles"] == 0
     assert a2a.hits[a2a.buckets[-1]] == 2 * 2 * cfg.n_layers
     del plans["moe_alltoall"]
-    with pytest.raises(ValueError, match="moe_alltoall"):
-        Engine(cfg, tf.init_params(cfg, device="cpu"),
-               ServeConfig(batch=BATCH, max_kv=16), tp=tp, device="cpu",
-               mode="explicit", decode_plans=plans)
+    # rejected as the reference rejects it: a warning, then auto
+    with pytest.warns(UserWarning, match="moe_alltoall"):
+        eng = Engine(cfg, tf.init_params(cfg, device="cpu"),
+                     ServeConfig(batch=BATCH, max_kv=16), tp=tp,
+                     device="cpu", mode="explicit", decode_plans=plans)
+    assert (eng.mode, eng.requested_mode) == ("auto", "explicit")
+    assert eng.health["fallbacks"] == 1
 
 
 # ---------------------------------------------------------------------------

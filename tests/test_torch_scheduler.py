@@ -253,10 +253,14 @@ def test_plan_set_without_seq_buckets_rejected(port_run, tmp_path):
                                          "sequence bucket 4"):
         _check_plan_set(cfg, plans, tp=TP, batch_local=BATCH,
                         seq_buckets=(4, 8))
-    with pytest.raises(ValueError, match="sequence bucket"):
-        Engine(cfg, port_run["params"], ServeConfig(
+    # the engine rejects it as the reference's does: a warning naming
+    # the bucket, then auto, counted as a fallback
+    with pytest.warns(UserWarning, match="sequence bucket"):
+        eng = Engine(cfg, port_run["params"], ServeConfig(
             batch=BATCH, max_kv=MAX_KV, prefill_seq_buckets=(4,)), tp=TP,
             device="cpu", mode="explicit", decode_plans=plans)
+    assert (eng.mode, eng.requested_mode) == ("auto", "explicit")
+    assert eng.health["fallbacks"] == 1 and eng.decode_plans == {}
     # the same set exported with them loads
     full = step_mod.compile_decode_plans(
         cfg, comm_lib.Communicator("model", n=TP, device="cpu"),
