@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 1,2,13 # build, then the serving stack
     python3 chip_smoke.py --phases 1,2,14 # build, then the API and traces
     python3 chip_smoke.py --phases 1,2,15 # build, then faults and guardrails
+    python3 chip_smoke.py --phases 1,2,16 # build, then the trainer
 
 Phases, each printing one JSON line (any failure raises, exit != 0):
 
@@ -286,6 +287,38 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    served engine or scheduler ends in another mode than it was asked
    for, or with a guardrail counter moved.
 
+16. the data-parallel trainer — qwen3-1.7b at full width and depth (28
+   layers, seeded random bf16 weights, 14 leaves, 2.03 G parameters)
+   through ``train.loop.run`` on a fixed batch of 8 x 256 tokens from
+   ``SyntheticLM``, 8 steps of AdamW (total 8, warmup 1), in auto,
+   explicit on a 2 x 4 grid (every gradient leaf through the
+   hierarchical 2PH plans: 3 executor launches a leaf) and explicit
+   flat DP 4 (one AllReduce plan a leaf), each mode's state freed before
+   the next. Gates: every loss finite; auto's loss falls by at least 0.5
+   (a control at lr = 0 must not); each explicit mode within the stated
+   bars of auto's losses and pre-clip gradient norms, step by step, with
+   two fault controls in plain torch past them (rank 0's gradient
+   dropped; the sum not divided by ndp); executor launches exactly 3 x
+   14 and 14 a step, no library kernel (``kernels/ops``, flash
+   attention) launched; step 0's reduced gradient leaf by leaf bit-equal
+   to the same axes' plans on ``TorchExecutor`` on the card, every
+   rank's copy bit-equal to rank 0's on the 2 x 4 grid (within the fold
+   bound on DP 4, where a 1PA plan folds each rank's sum from its own
+   buffer); at full width, 4 layers in f32 over 6 steps, each explicit
+   mode's losses within ``rtol 2e-3, atol 1e-4`` of auto's; at full
+   width, 4 layers, a checkpoint restart (4 steps saved, restored, run
+   to 8) under
+   ``torch.use_deterministic_algorithms(True, warn_only=True)``, params
+   and optimizer state bit-equal to the uninterrupted run's; and ``python
+   -m repro_torch.launch.train --arch qwen3-1.7b --reduced --mode
+   explicit`` in-process. Printed: ms a step by part (forward+backward
+   a rank, the step's whole reduction, its plan replays alone beside
+   their bound, their plain and one-call yardsticks and phase 11's plan
+   replays, the update), each part by its clock (device, or wall where
+   the host held the device back) with the host syncs one call of it
+   made, training tokens/s, the busy share of one profiled 2 x 4 step,
+   the peak device memory of each mode.
+
 The last lines are the card's nvidia-smi line, one ``{"kernels": [...]}``
 JSON object, and ``{"ok": true, "device": {...}}``. The whole record,
 the kernels line among it, also goes to ``chiprun_out/chip_smoke.json``.
@@ -293,7 +326,8 @@ The kernels line holds one entry per kernel. The executor's times are
 the launch-weighted mean of the main paths' decode mixes, each path's
 own under ``by_path`` (qwen3-1.7b, phi3.5-moe and hymba-1.5b, and with
 phase 13 the serving path, weighted by the kernels each of its buckets
-ran) and every shape's under ``per_shape``; its
+ran; with phase 16 the trainer's, each mode's plan replays a step over
+its launches a step, kept out of the mean) and every shape's under ``per_shape``; its
 ``launches`` are the wrapper's over the main paths (the engines'
 warm-up steps and captures), ``launches_profiled`` the executor kernels
 that the profiler counted over ``replays_profiled`` later replays of
@@ -528,6 +562,35 @@ CHAOS_FAULT_TICK = 3                    # (c): ticks before the fault
 CHAOS_F32_LAYERS = 4                    # (c) f32, (d), (e) depth
 CHAOS_LAUNCH_LAYERS = 4
 CHAOS_REFUSED_BLOCKS = 4096             # (e): blocks a rank, never resident
+# phase 16: the data-parallel trainer, qwen3-1.7b at full width and depth
+# on a fixed batch of 8 x 256 tokens from SyntheticLM (seed 0), 8 steps
+# of AdamW(total_steps=8, warmup_steps=1), in auto, explicit on a 2 x 4
+# grid (hierarchical 2PH plans) and explicit flat DP 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 8
+TRAIN_NODES, TRAIN_LOCAL, TRAIN_FLAT = 2, 4, 4
+TRAIN_MODES = ("auto", "2x4", "flat4")
+# auto's loss falls at least this much over the 8 steps (the reference
+# test's bar over 20)
+TRAIN_LOSS_DROP = 0.5
+# explicit against auto, bf16: the largest |loss difference| over the 8
+# steps, and the largest relative difference of the pre-clip gradient
+# norm (clipping and Adam normalise the gradient's scale away, so a lost
+# "/ ndp" shows in the norm, not in the loss). Measured on an NVIDIA H100
+# 80GB HBM3 at 700 W: 0.0059 / 0.0070 (2 x 4), 0.0060 / 0.0080 (DP 4);
+# the bars are over twice those, and the fault controls read 1.65 / 0.133
+# (rank 0 dropped) and 0.0035 / 7.07 (no mean) (PERF.md §6)
+TRAIN_LOSS_BAR = 0.02
+TRAIN_GNORM_BAR = 0.02
+# steps of each fault control (its step 0 already lands past a bar)
+TRAIN_CONTROL_STEPS = 4
+# f32 at full width, 4 layers, 6 steps: the reference test's bar
+TRAIN_F32_LAYERS, TRAIN_F32_STEPS = 4, 6
+TRAIN_F32_RTOL, TRAIN_F32_ATOL = 2e-3, 1e-4
+# the checkpoint restart at full width, 4 layers: at 28 layers its three
+# writes and one read of the 20 GB state took about 110 s of the phase
+TRAIN_RESTART_AT, TRAIN_RESTART_LAYERS = 4, 4
+TRAIN_TIME_ITERS = 2
+TRAIN_PATH = "train"
 
 RECORD: dict = {}
 
@@ -4440,7 +4503,7 @@ def _tree_call(device, gen):
     once, written once) and ``torch_native``'s; the peak memory."""
     from repro_torch import configs
     from repro_torch.core import api, comm
-    from repro_torch.core.comm import _tree_leaves
+    from repro_torch.tree import leaves as tree_leaves
     from repro_torch.core.executor import CudaExecutor
     from repro_torch.kernels import comm_utils
     comm.reset_default_communicators()
@@ -4455,13 +4518,13 @@ def _tree_call(device, gen):
                           device)
     got = api.tree_all_reduce(small, "model")
     want = api.tree_all_reduce(small, "model", backend="torch")
-    for g, w in zip(_tree_leaves(got), _tree_leaves(want)):
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
         check(torch.equal(g, w), "tree_all_reduce at 4 layers != plain")
     del small, got, want, g, w     # the leaves are views of the outputs
     comm.reset_default_communicators()
     torch.cuda.empty_cache()
     tree = _stacked_tree(cfg, TP, gen, device)
-    leaves = _tree_leaves(tree)
+    leaves = tree_leaves(tree)
     elems = sum(leaf[0].numel() for leaf in leaves)
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()   # the tree and any leftovers
@@ -4473,7 +4536,7 @@ def _tree_call(device, gen):
     check(launches == 1, f"tree_all_reduce made {launches} launches")
     peak = torch.cuda.max_memory_allocated()
     worst = 0.0
-    for x, y in zip(leaves, _tree_leaves(out)):
+    for x, y in zip(leaves, tree_leaves(out)):
         want = x[0].float()
         for r in range(1, TP):
             want += x[r].float()
@@ -5318,12 +5381,613 @@ def phase_chaos(device):
          seconds_by_part=sec, seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the data-parallel trainer (explicit: every gradient leaf
+# reduced by compiled plans on the executor kernel)
+# ---------------------------------------------------------------------------
+def _train_axes(name, device):
+    """The DP axes of a phase-16 mode: none (auto), a 2 x 4 node-major
+    grid (pod, data), or one flat axis of 4."""
+    from repro_torch.mesh import RankAxis
+    if name == "auto":
+        return ()
+    if name == "2x4":
+        return (RankAxis("pod", TRAIN_NODES, device),
+                RankAxis("data", TRAIN_LOCAL, device))
+    return (RankAxis("data", TRAIN_FLAT, device),)
+
+
+def _train_opt(steps, lr=None):
+    from repro_torch.train import optimizer as opt
+    return opt.AdamWConfig(total_steps=steps, warmup_steps=1,
+                           **({} if lr is None else dict(lr=lr)))
+
+
+def _train_batch(cfg):
+    from repro_torch.train import data
+    return data.SyntheticLM(data.DataConfig(
+        vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)).batch_at(0)
+
+
+def _train_run(cfg, name, device, steps=TRAIN_STEPS, opt_cfg=None,
+               keep=False, **tc):
+    """One ``train.loop.run`` of mode ``name`` on the fixed batch, with the
+    executor's and the library's launch counts set to 0 just before it
+    and read just after (the executor's also after every step, from the
+    loop's log line). Returns the record and, with ``keep``, the run's
+    result (its params and optimizer state among it)."""
+    from repro_torch.core.executor import CudaExecutor
+    from repro_torch.kernels import comm_utils
+    from repro_torch.train import loop
+    marks = []
+
+    def log(line):
+        if line.startswith("step "):
+            marks.append(CudaExecutor.launches)
+
+    _free()
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    CudaExecutor.launches = 0                   # just before the run
+    comm_utils.LAUNCHES.clear()
+    t = time.perf_counter()
+    res = loop.run(cfg, _train_axes(name, device), loop.TrainConfig(
+        steps=steps, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        mode="auto" if name == "auto" else "explicit", fixed_batch=True,
+        log_every=1, **tc), opt_cfg or _train_opt(steps), device=device,
+        log_fn=log)
+    torch.cuda.synchronize()
+    rec = dict(losses=res["losses"], grad_norms=res["grad_norms"],
+               step_ms=[s * 1e3 for s in res["step_s"]],
+               launches=CudaExecutor.launches,    # read just after
+               launches_per_step=np.diff([0] + marks).tolist(),
+               library_launches=dict(comm_utils.LAUNCHES),
+               plan_stats=res["plan_stats"],
+               peak_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+               seconds=time.perf_counter() - t)
+    if not keep:
+        del res
+        _free()
+        return rec, None
+    return rec, res
+
+
+def _train_gaps(run, auto):
+    """Largest |loss difference| and largest relative grad-norm
+    difference of a run against auto's, step by step."""
+    n = len(run["losses"])
+    return dict(
+        loss=max(abs(a - b) for a, b in zip(run["losses"],
+                                            auto["losses"][:n])),
+        grad_norm=max(abs(a - b) / abs(b) for a, b in zip(
+            run["grad_norms"], auto["grad_norms"][:n])))
+
+
+def _drop_rank(x, *, rank=None):
+    """Fault control in plain torch, in ``reduce_leaf``'s place: rank 0's
+    gradient dropped from the sum (the other ranks' sum over ndp)."""
+    out = (x[1:].float().sum(0) / x.shape[0]).to(x.dtype)
+    return out.expand_as(x) if rank is None else out
+
+
+def _no_mean(x, *, rank=None):
+    """Fault control in plain torch, in ``reduce_leaf``'s place: the
+    ranks' sum, not divided by ndp."""
+    out = x.float().sum(0).to(x.dtype)
+    return out.expand_as(x) if rank is None else out
+
+
+def _train_control(cfg, device, reduce):
+    """The 2 x 4 explicit step for TRAIN_CONTROL_STEPS on the fixed batch
+    with its ``reduce_leaf`` replaced by ``reduce``: losses and grad
+    norms."""
+    from repro_torch.distributed import step as st
+    oc = _train_opt(TRAIN_STEPS)
+    step = st.make_train_step(cfg, _train_axes("2x4", device), oc,
+                              mode="explicit", global_batch=TRAIN_BATCH,
+                              seq_len=TRAIN_SEQ, device=device)
+    step.reduce_leaf = reduce
+    params, state = st.init_sharded(cfg, device=device, optimizer_cfg=oc)
+    batch = _train_batch(cfg)
+    losses, norms = [], []
+    for _ in range(TRAIN_CONTROL_STEPS):
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    del params, state, step
+    _free()
+    return dict(losses=losses, grad_norms=norms)
+
+
+def _train_kernel_vs_plain(cfg, name, device):
+    """Step 0's stacked gradient of mode ``name``, reduced leaf by leaf
+    through the step's plans on the executor kernel and through the same
+    axes' plans on ``TorchExecutor`` on the card: bit-equal; every rank's
+    copy against rank 0's (bit-equal, or within the fold bound of the
+    ranks' bf16 adds where a 1PA plan at more than two ranks folds each
+    rank's sum from its own buffer)."""
+    from repro_torch.distributed import step as st
+    _free()
+    axes = _train_axes(name, device)
+    step = st.make_train_step(cfg, axes, _train_opt(TRAIN_STEPS),
+                              mode="explicit", global_batch=TRAIN_BATCH,
+                              seq_len=TRAIN_SEQ, device=device)
+    plain = st.make_dp_communicators(axes, backend="torch")
+    params, _ = st.init_sharded(cfg, device=device)
+    names = _leaf_names(params)
+    _, stacked = step.rank_grads(params, _train_batch(cfg))
+    del params
+    eps = torch.finfo(torch.bfloat16).eps
+    leaves = []
+    for i, name_i in enumerate(names):
+        x = stacked[i]
+        stacked[i] = None
+        y = step.reduce_leaf(x)
+        z = step.reduce_leaf(x, comms=plain)
+        ndp = x.shape[0]
+        rec = dict(leaf=name_i, shape=list(x.shape[1:]),
+                   bit_equal_plain=torch.equal(y, z),
+                   ranks_bit_equal=all(torch.equal(y[r], y[0])
+                                       for r in range(1, ndp)))
+        # the differences, read only where there are some (f32 copies of
+        # a stacked leaf are several GB)
+        rec["max_abs_err_plain"] = 0.0 if rec["bit_equal_plain"] else \
+            (y.float() - z.float()).abs().max().item()
+        del z
+        if rec["ranks_bit_equal"]:
+            rec.update(rank_max_abs_gap=0.0, ranks_within_fold_bound=True)
+        else:
+            bound = (ndp - 1) * eps * x.float().abs().sum(0) / ndp
+            gaps = [(y[r].float() - y[0].float()).abs()
+                    for r in range(1, ndp)]
+            rec.update(rank_max_abs_gap=max(g.max().item() for g in gaps),
+                       ranks_within_fold_bound=all(
+                           bool(torch.all(g <= bound)) for g in gaps))
+            del bound, gaps
+        leaves.append(rec)
+        del x, y
+        _free()
+    algos = {k: sorted({p.algo for p in c.plans().values()})
+             for k, c in step.comms.items()}
+    del step, plain, stacked
+    _free()
+    check(all(r["bit_equal_plain"] for r in leaves),
+          f"train {name}: step 0's reduced gradient != TorchExecutor's "
+          f"plans: {[r['leaf'] for r in leaves if not r['bit_equal_plain']]}")
+    if name == "2x4":
+        check(all(r["ranks_bit_equal"] for r in leaves),
+              f"train {name}: a rank's reduced copy != rank 0's")
+    check(all(r["ranks_within_fold_bound"] for r in leaves),
+          f"train {name}: a rank's reduced copy past the fold bound")
+    return dict(leaves=leaves, algos=algos,
+                ranks_bit_equal=sum(r["ranks_bit_equal"] for r in leaves),
+                max_abs_err=max(r["max_abs_err_plain"] for r in leaves))
+
+
+def _leaf_names(params):
+    """Each leaf's path in the reference's leaf order."""
+    def walk(t, pre):
+        if isinstance(t, dict):
+            return [n for k in sorted(t) for n in walk(t[k], f"{pre}{k}/")]
+        if isinstance(t, (list, tuple)):
+            return [n for i, v in enumerate(t) for n in walk(v, f"{pre}{i}/")]
+        return [pre[:-1]]
+    return walk(params, "")
+
+
+def _host_syncs(fn) -> list:
+    """The calls in one ``fn()`` that made the host wait for the stream
+    (``torch.cuda.set_sync_debug_mode``'s warnings: a copy from host
+    memory, ``.item()``, ``nonzero``), each as its innermost frames
+    (``file:line function``), the port's line that led to it among
+    them."""
+    import traceback
+    import warnings
+    sites = []
+
+    def record(message, *args, **kw):
+        if "synchroniz" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if not f.filename.endswith("warnings.py")]
+            port = [f for f in frames if "repro_torch" in f.filename]
+            sites.append([f"{pathlib.Path(f.filename).name}:{f.lineno} "
+                          f"{f.name}" for f in (port[-1:] + frames[-3:])])
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def _busy_ms(fn) -> float:
+    """Device-busy ms of one ``fn()``: its kernels' summed time under
+    ``torch.profiler`` (device activity only), whatever the host's
+    pace."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(r[0] for r in _device_rows(prof, 1)) / 1e3
+
+
+def _train_time(cfg, device):
+    """ms a step by part, by CUDA events behind a device sleep
+    (``device_ms``), each beside whether the sleep covered the host's
+    enqueue (where it did not, the part's figure is the host's time, not
+    the device's) and the host syncs one call of it made: auto's
+    forward+backward over the global batch and its update; for each
+    explicit mode one rank's forward+backward, the gradient reduction and
+    the update. A rank's pass enqueues more kernels than the launch
+    queue holds, so the sleep cannot cover it: its figure is wall time,
+    and ``fwd_bwd_busy_ms`` (its kernels' summed time, profiled) is its
+    device time. The reduction is timed two ways: the step's (``reduce_ms``:
+    every leaf's ``reduce_leaf`` as the step calls it, the payload's
+    reshape, the plan's replay, its scratch released and rank 0's copy
+    averaged), and the plan replays alone (``replay_ms``, each leaf's plan
+    replayed on its payload, the kernel; ``replay_plain_ms``: the same
+    axes' plans on ``TorchExecutor``; ``replay_library_ms``: ``x.sum(0)``
+    expanded to every rank, one PyTorch call a leaf, which the port never
+    calls), beside their bound (every rank's payload read once and written
+    once over HBM). The state is the seeded init's; times do not depend on
+    it."""
+    from repro_torch import tree
+    from repro_torch.distributed import step as st
+    from repro_torch.train import optimizer as opt
+    out = {}
+    batch = _train_batch(cfg)
+    oc = _train_opt(TRAIN_STEPS)
+    for name in TRAIN_MODES:
+        _free()
+        t = time.perf_counter()
+        axes = _train_axes(name, device)
+        step = st.make_train_step(
+            cfg, axes, oc, mode="auto" if name == "auto" else "explicit",
+            global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, device=device)
+        params, state = st.init_sharded(cfg, device=device,
+                                        optimizer_cfg=oc)
+        full = step.batch(batch)
+        rows = TRAIN_BATCH // step.ndp
+        sub = {k: v[:rows] for k, v in full.items()}
+        rec = dict(tokens_per_rank=rows * TRAIN_SEQ, sleep_covered={},
+                   host_syncs={})
+
+        def fwd_bwd():
+            step.value_and_grad(params, sub)
+        rec["fwd_bwd_ms"], rec["sleep_covered"]["fwd_bwd"] = device_ms(
+            fwd_bwd, TRAIN_TIME_ITERS)
+        rec["host_syncs"]["fwd_bwd"] = _host_syncs(fwd_bwd)
+        rec["fwd_bwd_busy_ms"] = _busy_ms(fwd_bwd)
+        if name != "auto":
+            _, stacked = step.rank_grads(params, batch)
+            plain = st.make_dp_communicators(axes, backend="torch")
+            nbytes = sum(2 * x.numel() * x.element_size() for x in stacked)
+
+            def reduce():
+                for x in stacked:
+                    step.reduce_leaf(x, rank=0)
+
+            rec["reduce_ms"], rec["sleep_covered"]["reduce"] = device_ms(
+                reduce, TRAIN_TIME_ITERS)
+            rec["reduce_wall_ms"] = wall_ms(reduce, TRAIN_TIME_ITERS)
+            rec["host_syncs"]["reduce"] = _host_syncs(reduce)
+            replay = dict(kernel=0.0, plain=0.0, library=0.0)
+            cov = dict(kernel=True, plain=True, library=True)
+            for leaf in stacked:
+                x = step.payload(leaf)
+                for part, comms, iters in (("kernel", None, TRAIN_TIME_ITERS),
+                                           ("plain", plain, 1),
+                                           ("library", None,
+                                            TRAIN_TIME_ITERS)):
+                    if part == "library":
+                        plan = None
+                        fn = lambda: x.sum(  # noqa: E731
+                            0, keepdim=True).expand_as(x).contiguous()
+                    else:
+                        plan = step.plan_for(x, comms)
+                        fn = lambda: plan(x)  # noqa: E731
+                    ms, c = device_ms(fn, iters)
+                    replay[part] += ms
+                    cov[part] = cov[part] and c
+                    # one plan's scratch held at a time, as in the step
+                    if plan is not None:
+                        plan.release()
+                    del fn, plan
+                    _free()
+                del x
+            rec["replay_ms"] = replay["kernel"]
+            rec["replay_plain_ms"] = replay["plain"]
+            rec["replay_library_ms"] = replay["library"]
+            rec["sleep_covered"].update(
+                {f"replay_{k}": v for k, v in cov.items()})
+            rec["replay_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+            rec["replay_bytes"] = nbytes
+            rec["leaves"] = len(stacked)
+            grads = tree.unflatten(params, [x[0] for x in stacked])
+            del plain
+        else:
+            _, g = step.value_and_grad(params, full)
+            grads = tree.unflatten(params, g)
+            del g
+
+        def update():
+            opt.adamw_update(oc, params, grads, state, donate=True)
+        rec["update_ms"], rec["sleep_covered"]["update"] = device_ms(
+            update, TRAIN_TIME_ITERS)
+        rec["host_syncs"]["update"] = _host_syncs(update)
+        # each part's figure by its clock: "device" where the sleep
+        # covered the enqueue, else "wall" (the host held the device back)
+        rec["clock"] = {k: "device" if v else "wall"
+                        for k, v in rec["sleep_covered"].items()}
+        rec["seconds"] = time.perf_counter() - t
+        out[name] = rec
+        del params, state, grads, step, full, sub
+        if name != "auto":
+            del stacked
+        _free()
+    return out
+
+
+def _train_profile(cfg, device):
+    """One 2 x 4 explicit step under ``torch.profiler`` (device activity
+    only: the host side of some 35 k ops a step took a minute to
+    summarise) after a warm step: device busy share (summed kernel time
+    over the step's wall) and the executor kernels it ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed import step as st
+    _free()
+    oc = _train_opt(TRAIN_STEPS)
+    step = st.make_train_step(cfg, _train_axes("2x4", device), oc,
+                              mode="explicit", global_batch=TRAIN_BATCH,
+                              seq_len=TRAIN_SEQ, device=device)
+    params, state = st.init_sharded(cfg, device=device, optimizer_cfg=oc)
+    batch = _train_batch(cfg)
+    params, state, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params, state, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    bare_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    rows = _device_rows(prof, 1)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    del params, state, step
+    _free()
+    return dict(step_wall_ms=wall, step_wall_ms_unprofiled=bare_ms,
+                device_busy_ms=busy_ms,
+                device_busy_share=busy_ms / wall if rows else None,
+                device_busy_share_unprofiled=busy_ms / bare_ms if rows
+                else None,
+                executor_kernels=_executor_kernels(prof),
+                top_kernels=[dict(name=k[:90], ms=us / 1e3, launches=c)
+                             for us, c, k in rows[:8]])
+
+
+def _train_f32(cfg, device):
+    """Full width, TRAIN_F32_LAYERS layers in f32, TRAIN_F32_STEPS steps:
+    each explicit mode's losses within the reference test's bar of
+    auto's."""
+    small = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS,
+                                dtype="float32")
+    runs = {name: _train_run(small, name, device, steps=TRAIN_F32_STEPS)[0]
+            for name in TRAIN_MODES}
+    out = {}
+    for name in TRAIN_MODES[1:]:
+        got, want = runs[name]["losses"], runs["auto"]["losses"]
+        ok = np.allclose(got, want, rtol=TRAIN_F32_RTOL, atol=TRAIN_F32_ATOL)
+        out[name] = dict(losses=got, gaps=_train_gaps(runs[name],
+                                                      runs["auto"]),
+                         within_bar=bool(ok))
+        check(ok, f"train f32 {name}: losses {got} vs auto {want}")
+    out["auto"] = dict(losses=runs["auto"]["losses"])
+    return out
+
+
+def _train_restart(cfg, device):
+    """Checkpoint restart on the 2 x 4 explicit path at full width and
+    TRAIN_RESTART_LAYERS layers, under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: the
+    uninterrupted 8 steps; 4 steps written to a checkpoint; a run
+    resumed from it to 8. Params and optimizer state bit-equal."""
+    import shutil
+    import tempfile
+    import warnings
+
+    from repro_torch import tree
+    from repro_torch.train import checkpoint as ckpt
+    state_gb = 0.0
+    was = torch.are_deterministic_algorithms_enabled()
+    was_warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = pathlib.Path(tempfile.mkdtemp(dir=ROOT / "build",
+                                      prefix="train_ckpt_"))
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            full, res = _train_run(cfg, "2x4", device, keep=True)
+            want = [x.cpu() for x in tree.leaves(
+                [res["params"], res["opt_state"]])]
+            state_gb = sum(x.numel() * x.element_size() for x in want) / 1e9
+            del res
+            _free()
+            free_gb = shutil.disk_usage(d).free / 1e9
+            check(free_gb > 2.2 * state_gb,
+                  f"train restart: {free_gb:.1f} GB free on disk for two "
+                  f"checkpoints of {state_gb:.1f} GB")
+            first, _ = _train_run(cfg, "2x4", device,
+                                  steps=TRAIN_RESTART_AT,
+                                  opt_cfg=_train_opt(TRAIN_STEPS),
+                                  ckpt_dir=str(d), keep_n=1)
+            ckpt.wait_pending()
+            resumed, res = _train_run(cfg, "2x4", device,
+                                      opt_cfg=_train_opt(TRAIN_STEPS),
+                                      keep=True, ckpt_dir=str(d), keep_n=1)
+            got = tree.leaves([res["params"], res["opt_state"]])
+            equal = [torch.equal(a.cpu(), b) for a, b in zip(got, want)]
+            gap = max((a.cpu().float() - b.float()).abs().max().item()
+                      for a, b in zip(got, want))
+            del res, got
+            _free()
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=was_warn)
+        shutil.rmtree(d, ignore_errors=True)
+    out = dict(losses_full=full["losses"],
+               losses_resumed=first["losses"] + resumed["losses"],
+               leaves_bit_equal=sum(equal), leaves=len(equal),
+               max_abs_gap=gap, state_gb=state_gb,
+               nondeterministic_ops=sorted({str(w.message)[:100]
+                                            for w in caught}))
+    check(all(equal), f"train restart: {len(equal) - sum(equal)} leaves "
+          f"differ from the uninterrupted run (max |gap| {gap})")
+    check(len(resumed["losses"]) == TRAIN_STEPS - TRAIN_RESTART_AT,
+          f"train restart: resumed {len(resumed['losses'])} steps")
+    return out
+
+
+def _train_launcher():
+    """``python -m repro_torch.launch.train --arch qwen3-1.7b --reduced
+    --mode explicit`` in-process."""
+    import io
+    from repro_torch.launch import train as launch
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = launch.main(["--arch", ARCH, "--reduced", "--mode", "explicit"])
+    lines = buf.getvalue().strip().splitlines()
+    out = dict(rc=rc, first=lines[0], last=lines[-1], lines=len(lines),
+               seconds=time.perf_counter() - t0)
+    check(rc == 0 and lines[0].startswith(f"arch={ARCH}-reduced")
+          and "mode=explicit" in lines[0]
+          and lines[-1].startswith("final loss "),
+          f"train launcher: {lines[:2]} ... {lines[-1:]}")
+    _free()
+    return out
+
+
+def phase_train(device):
+    """Phase 16: the data-parallel trainer (see the module docstring)."""
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    _free()
+    cfg = configs.get_config(ARCH)
+    sec = {}
+    t = time.perf_counter()
+    runs = {name: _train_run(cfg, name, device)[0] for name in TRAIN_MODES}
+    sec["runs"] = time.perf_counter() - t
+    emit("train_runs", card=RECORD["device"]["nvidia_smi"], runs=runs)
+    auto = runs["auto"]
+    n_leaves = len(_grad_leaves())          # phase 11's, the same model
+    drop = auto["losses"][0] - auto["losses"][-1]
+    for name, r in runs.items():
+        check(bool(np.isfinite(r["losses"]).all()),
+              f"train {name}: losses {r['losses']}")
+        check(not r["library_launches"],
+              f"train {name}: library kernels launched on the trainer's "
+              f"path {r['library_launches']}")
+    check(drop >= TRAIN_LOSS_DROP, f"train auto: loss fell {drop} over "
+          f"{TRAIN_STEPS} steps, not {TRAIN_LOSS_DROP}")
+    per_step = {"auto": 0, "2x4": 3 * n_leaves, "flat4": n_leaves}
+    for name, r in runs.items():
+        check(r["launches_per_step"] == [per_step[name]] * TRAIN_STEPS
+              and r["launches"] == per_step[name] * TRAIN_STEPS,
+              f"train {name}: executor launches a step "
+              f"{r['launches_per_step']}, not {per_step[name]}")
+    gaps = {name: _train_gaps(runs[name], auto) for name in TRAIN_MODES[1:]}
+    for name, g in gaps.items():
+        check(g["loss"] <= TRAIN_LOSS_BAR
+              and g["grad_norm"] <= TRAIN_GNORM_BAR,
+              f"train {name} vs auto: {g} past the bars "
+              f"({TRAIN_LOSS_BAR}, {TRAIN_GNORM_BAR})")
+    t = time.perf_counter()
+    lr0, _ = _train_run(cfg, "auto", device,
+                        opt_cfg=_train_opt(TRAIN_STEPS, lr=0.0))
+    lr0_drop = lr0["losses"][0] - lr0["losses"][-1]
+    check(lr0_drop < TRAIN_LOSS_DROP,
+          f"train control lr=0: the loss fell {lr0_drop}, past the gate")
+    controls = {}
+    for cname, fn in (("drop_rank", _drop_rank), ("no_mean", _no_mean)):
+        c = _train_control(cfg, device, fn)
+        c["gaps"] = _train_gaps(c, auto)
+        controls[cname] = c
+        check(c["gaps"]["loss"] > TRAIN_LOSS_BAR
+              or c["gaps"]["grad_norm"] > TRAIN_GNORM_BAR,
+              f"train control {cname}: {c['gaps']} inside the bars")
+    sec["controls"] = time.perf_counter() - t
+    t = time.perf_counter()
+    vs_plain = {name: _train_kernel_vs_plain(cfg, name, device)
+                for name in TRAIN_MODES[1:]}
+    sec["kernel_vs_plain"] = time.perf_counter() - t
+    t = time.perf_counter()
+    timing = _train_time(cfg, device)
+    prof = _train_profile(cfg, device)
+    sec["timing"] = time.perf_counter() - t
+    t = time.perf_counter()
+    f32 = _train_f32(cfg, device)
+    sec["f32"] = time.perf_counter() - t
+    t = time.perf_counter()
+    launcher = _train_launcher()
+    sec["launcher"] = time.perf_counter() - t
+    t = time.perf_counter()
+    restart = _train_restart(dataclasses.replace(
+        cfg, n_layers=TRAIN_RESTART_LAYERS), device)
+    sec["restart"] = time.perf_counter() - t
+    hier = RECORD.get("hierarchical")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    summary = {}
+    for name, r in runs.items():
+        ms = float(np.median(r["step_ms"][1:]))
+        summary[name] = dict(step_ms_median=ms,
+                             tokens_per_s=tokens / ms * 1e3,
+                             peak_gb=r["peak_gb"],
+                             first_loss=r["losses"][0],
+                             last_loss=r["losses"][-1])
+    emit("train", card=RECORD["device"]["nvidia_smi"], arch=ARCH,
+         n_layers=cfg.n_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         steps=TRAIN_STEPS, grid=f"{TRAIN_NODES}x{TRAIN_LOCAL}",
+         flat=TRAIN_FLAT, leaves=n_leaves, summary=summary, gaps=gaps, bars=dict(loss=TRAIN_LOSS_BAR,
+                              grad_norm=TRAIN_GNORM_BAR,
+                              loss_drop=TRAIN_LOSS_DROP),
+         loss_drop=drop, control_lr0=dict(losses=lr0["losses"],
+                                          drop=lr0_drop),
+         controls=controls, kernel_vs_plain=vs_plain, timing=timing,
+         profile=prof, f32=f32, restart=restart, launcher=launcher,
+         phase11_plan_replay_ms=(hier["gradient_total"]["plan_ms"]
+                                 if hier else None),
+         seconds_by_part=sec, seconds=time.perf_counter() - t0)
+    # the executor on the trainer's path, for the kernels line: each
+    # explicit mode's plan replays a step over its launches a step (the
+    # step's whole reduction, reshape, scratch and averaging included, is
+    # ``reduce_step_ms`` beside them)
+    by = {}
+    for name in TRAIN_MODES[1:]:
+        tm, n = timing[name], per_step[name]
+        by[name] = dict(launches=runs[name]["launches"],
+                        launches_per_step=n,
+                        ms=tm["replay_ms"] / n,
+                        plain_ms=tm["replay_plain_ms"] / n,
+                        bound_ms=tm["replay_bound_ms"] / n,
+                        library_ms=tm["replay_library_ms"] / n,
+                        replay_ms=tm["replay_ms"],
+                        reduce_step_ms=tm["reduce_ms"])
+    return dict(by_mode=by, max_abs_err=max(v["max_abs_err"]
+                                            for v in vs_plain.values()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15",
+                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default 1-6 and "
-                         "8-15; 7 profiles a decode step)")
+                         "8-16; 7 profiles a decode step)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -5343,7 +6007,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
     (max_err, launches, timing, coll, moe, prefill, hier, hybrid, serve,
-     api) = (None,) * 10
+     api, train) = (None,) * 11
     if 2 in phases:
         phase_build()
     if 3 in phases:
@@ -5372,7 +6036,25 @@ def main(argv=None) -> int:
         api = phase_api(device, gen)
     if 15 in phases:
         phase_chaos(device)
+    if 16 in phases:
+        train = phase_train(device)
     kernels = []
+    train_path = None
+    if train is not None:
+        # the trainer (phase 16): the executor's launches over the explicit
+        # runs (2 x 4: 3 a leaf a step; flat DP 4: one), and its times a
+        # launch, each mode's plan replays over its launches a step, weighted
+        # by the modes' launches. Kept out of the decode paths' weighted
+        # mean: a gradient leaf's launch is milliseconds
+        tb = train["by_mode"]
+        n_train = sum(v["launches"] for v in tb.values())
+        train_path = dict(
+            launches=n_train,
+            launches_per_step={m: v["launches_per_step"]
+                               for m, v in tb.items()},
+            **{k: sum(v[k] * v["launches"] for v in tb.values()) / n_train
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            per_mode=tb)
     if timing is not None:
         # each main path's per-step launch mix at full occupancy (every
         # plan family at its top bucket): qwen3-1.7b's layer AllReduces
@@ -5452,6 +6134,9 @@ def main(argv=None) -> int:
         shapes = timing + (serve["executor_time"] if serve else [])
         errs = [e for e in [max_err] + [t["max_abs_err"] for t in shapes]
                 if e is not None]
+        if train_path is not None:
+            by_path[TRAIN_PATH] = train_path
+            errs.append(train["max_abs_err"])
         kernels.append(dict(
             name="dsl_executor", route="cuda", source=KERNEL_SOURCE,
             replaces=REPLACES, max_abs_err=max(errs),
@@ -5470,6 +6155,15 @@ def main(argv=None) -> int:
             # phase 14: the traced kernel's µs over the untraced one's, at
             # every traced plan of (c) (median, worst, median by size)
             traced_overhead=api))
+    elif train_path is not None:
+        # without phase 6 the executor's entry is the trainer's alone
+        kernels.append(dict(
+            name="dsl_executor", route="cuda", source=KERNEL_SOURCE,
+            replaces=REPLACES, max_abs_err=train["max_abs_err"],
+            launches=train_path["launches"],
+            **{k: train_path[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms")},
+            bound_by="bytes", by_path={TRAIN_PATH: train_path}))
     if hier is not None:
         # the executor's group view on phase 11's path, apart from the
         # decode mixes above: 14 hierarchical replays of 3 launches each.

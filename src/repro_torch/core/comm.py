@@ -56,6 +56,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree as tree_lib
 from repro_torch.core import algorithms as algos
 from repro_torch.core import passes
 from repro_torch.core import selector as sel
@@ -66,9 +67,10 @@ from repro_torch.mesh import DeviceLike, RankGrid, resolve_device
 
 __all__ = ["Communicator", "ExecutionPlan", "BucketedPlan",
            "HierarchicalPlan", "HierarchicalCommunicator",
-           "hierarchical_all_reduce", "default_backend", "plan_from_json",
-           "export_plan_set", "load_plan_set", "default_communicator",
-           "reset_default_communicators", "PLAN_FORMAT_VERSION",
+           "hierarchical_all_reduce", "hierarchical_plan", "default_backend",
+           "plan_from_json", "export_plan_set", "load_plan_set",
+           "default_communicator", "reset_default_communicators",
+           "PLAN_FORMAT_VERSION",
            "BACKENDS", "NATIVE"]
 
 PLAN_FORMAT_VERSION = 1
@@ -212,6 +214,13 @@ class ExecutionPlan:
         if self.pad:
             out = out[:, : self.shape[0]]
         return out
+
+    def release(self) -> None:
+        """Give the kernel's scratch of every shape no CUDA graph captured
+        back to the allocator (:meth:`CudaExecutor.release`); the next
+        call allocates it again. The plain executor holds none."""
+        if isinstance(self.executor, CudaExecutor):
+            self.executor.release()
 
     def capture_trace(self, x: Optional[torch.Tensor] = None):
         """Record (and return) this plan's timeline: on the card its
@@ -781,7 +790,7 @@ class Communicator:
         unflatten (the leaves come back as views of the reduced buffer).
         ``kw`` (``algo``, ``link``, ``opt_level``) go to
         :meth:`all_reduce`."""
-        leaves = _tree_leaves(tree)
+        leaves = tree_lib.leaves(tree)
         if not leaves:
             return tree
         n = leaves[0].shape[0]
@@ -810,7 +819,7 @@ class Communicator:
             out.append(red[:, off:off + size].reshape(leaf.shape)
                        .to(leaf.dtype))
             off += size
-        return _tree_unflatten(tree, iter(out))
+        return tree_lib.unflatten(tree, out)
 
     def _resolve_algo(self, collective, n, nbytes, algo, link, opt_level):
         cands = sel.CANDIDATES[collective]
@@ -829,27 +838,6 @@ class Communicator:
         return (f"Communicator(axis={self.axis!r}, n={self.n}, "
                 f"device={self.device}, backend={self.backend!r}, "
                 f"plans={len(self._plans)}, stats={self.stats})")
-
-
-def _tree_leaves(tree) -> list:
-    """A pytree's tensor leaves in the reference's order (``jax.tree``:
-    dict keys sorted, sequences in order)."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for t in tree for leaf in _tree_leaves(t)]
-    return [tree]
-
-
-def _tree_unflatten(tree, leaves):
-    """``tree``'s structure with its leaves taken in order from
-    ``leaves``."""
-    if isinstance(tree, dict):
-        out = {k: _tree_unflatten(tree[k], leaves) for k in sorted(tree)}
-        return {k: out[k] for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_unflatten(t, leaves) for t in tree)
-    return next(leaves)
 
 
 def _hierarchical_phases(local: Communicator, node: Communicator, shape,
@@ -889,6 +877,37 @@ def _hierarchical_phases(local: Communicator, node: Communicator, shape,
                               stride=lstride, n=grid.local, **kw))
 
 
+def hierarchical_plan(shape, dtype, *, local: Communicator,
+                      node: Communicator, backend: Optional[str] = None,
+                      small_message_bytes: int = 1 << 20,
+                      opt_level: Optional[int] = None,
+                      node_link: Optional[sel.LinkModel] = None,
+                      local_n: Optional[int] = None,
+                      node_n: Optional[int] = None,
+                      device: DeviceLike = None) -> "HierarchicalPlan":
+    """The :class:`HierarchicalPlan` that :func:`hierarchical_all_reduce`
+    replays on one rank's ``(rows, cols)`` payload of ``dtype``: its three
+    phase plans compiled on (or fetched from) ``local`` and ``node``.
+    ``local_n``/``node_n`` and ``device`` fill in what communicators made
+    without ``n`` lack."""
+    lnum = local_n or local.n
+    if lnum is None:
+        raise ValueError(f"communicator {local.axis!r} has no axis size: "
+                         f"pass local_n=")
+    nnum = node_n or node.n
+    if nnum is None:
+        raise ValueError(f"communicator {node.axis!r} has no axis size: "
+                         f"pass node_n=")
+    phases = _hierarchical_phases(
+        local, node, shape, dtype, backend=backend, opt_level=opt_level,
+        small_message_bytes=small_message_bytes, node_link=node_link,
+        local_n=lnum, node_n=nnum,
+        device=None if local.device is not None else device)
+    return HierarchicalPlan(shape=(int(shape[0]), int(shape[1])),
+                            dtype=_dtype_name(dtype), local_axis=local.axis,
+                            node_axis=node.axis, **phases)
+
+
 def hierarchical_all_reduce(x: torch.Tensor, *, local: Communicator,
                             node: Communicator,
                             backend: Optional[str] = None,
@@ -913,14 +932,10 @@ def hierarchical_all_reduce(x: torch.Tensor, *, local: Communicator,
     if x.dim() != 3 or x.shape[0] != lnum * nnum:
         raise ValueError(f"expected a ({nnum} nodes x {lnum} local, "
                          f"rows, cols) payload, got {tuple(x.shape)}")
-    phases = _hierarchical_phases(
-        local, node, tuple(x.shape[1:]), x.dtype, backend=backend,
-        opt_level=opt_level, small_message_bytes=small_message_bytes,
-        node_link=node_link, local_n=lnum, node_n=nnum,
-        device=None if local.device is not None else x.device)
-    return HierarchicalPlan(shape=tuple(x.shape[1:]),
-                            dtype=_dtype_name(x.dtype), local_axis=local.axis,
-                            node_axis=node.axis, **phases)(x)
+    return hierarchical_plan(
+        tuple(x.shape[1:]), x.dtype, local=local, node=node, backend=backend,
+        small_message_bytes=small_message_bytes, opt_level=opt_level,
+        node_link=node_link, local_n=lnum, node_n=nnum, device=x.device)(x)
 
 
 # ---------------------------------------------------------------------------
@@ -976,6 +991,11 @@ class HierarchicalPlan:
         shard = self.ar_plan(shard)
         out = self.ag_plan(shard)
         return out[:, :rows] if self.pad else out
+
+    def release(self) -> None:
+        """:meth:`ExecutionPlan.release` of every phase."""
+        for plan in self.phases.values():
+            plan.release()
 
     # -- inspection --------------------------------------------------------
     @property

@@ -824,15 +824,12 @@ class CudaExecutor:
                 f"CudaExecutor for {self.program.name!r} re-binds a shape "
                 f"that a CUDA graph captured: the graph replays its flags, "
                 f"epoch words and scratch")
-        p = self.program
         n = enc.n
         if groups < 1 or groups * n > MAX_RANKS:
             raise KernelLaunchError(f"{groups} groups of {n} ranks: the CUDA "
                                     f"executor runs at most {MAX_RANKS} "
                                     f"ranks per launch")
-        scratch = [torch.empty((groups * n, p.chunks[b] * rows, cols),
-                               dtype=dtype, device=device)
-                   for b in enc.buffers[2:]]
+        scratch = self._scratch(rows, cols, dtype, device, groups)
         from repro_torch.kernels import build
         cap = build.executor_library().dsl_executor_max_blocks(
             _DTYPE_CODES[dtype], THREADS)
@@ -849,6 +846,33 @@ class CudaExecutor:
             rows, cols, dtype, device, groups, scratch, flags, group_flags,
             ops, opnds, blocks, epochs)
         return self
+
+    def _scratch(self, rows, cols, dtype, device, groups) -> list:
+        """The program's scratch buffers for one binding (contents are
+        never read before the launch writes them)."""
+        p, enc = self.program, self.encoded
+        return [torch.empty((groups * enc.n, p.chunks[b] * rows, cols),
+                            dtype=dtype, device=device)
+                for b in enc.buffers[2:]]
+
+    def release(self) -> int:
+        """Give the scratch of every binding that no CUDA graph captured
+        back to the allocator (stream-ordered, so a launch still in flight
+        keeps it); the next launch at that shape allocates it again, with
+        no host copy or query. Flags, epoch words and the instruction
+        table stay bound (a few KiB; the epoch sequence goes on). A
+        trainer that reduces many payload-sized leaves one after another
+        holds one leaf's scratch at a time this way. Returns the bindings
+        released."""
+        released = 0
+        for key, b in list(self._bindings.items()):
+            if key in self._captured or b[5] is None:
+                continue
+            self._bindings[key] = b[:5] + (None,) + b[6:]
+            if self._bound is b:
+                self._bound = self._bindings[key]
+            released += 1
+        return released
 
     def __call__(self, x: torch.Tensor, *, groups: int = 1,
                  stride: int = 1) -> torch.Tensor:
@@ -1026,6 +1050,10 @@ class CudaExecutor:
             self._bound = self._bindings[key]
         else:
             self._bind(rows, cols, x.dtype, x.device, groups)
+        if self._bound[5] is None:               # released: scratch anew
+            self._bound = self._bindings[key] = self._bound[:5] + (
+                self._scratch(rows, cols, x.dtype, x.device, groups),) \
+                + self._bound[6:]
         capturing = _capturing()
         scope = getattr(_SCOPE, "scope", None) if capturing else None
         if capturing and key not in self._captured:

@@ -23,27 +23,38 @@ token hot path) — port of ``repro.distributed.step``'s serving half.
 * :func:`make_prefill_step` builds the full-sequence prefill forward
   (what a prompt costs before its first token) in auto mode: one
   unsharded model, each layer's attention core one flash-attention
-  launch on the card.
+  launch on the card;
+* :func:`make_train_step` builds the data-parallel train step (the
+  trainer half): ``auto`` (one model over the global batch) or
+  ``explicit`` (the DP ranks' gradients stacked on the card and every
+  leaf reduced by compiled plans that the executor kernel replays: the
+  hierarchical 2PH plan over two DP axes, :func:`make_dp_communicators`,
+  or one flat AllReduce plan), then AdamW; :func:`init_sharded` makes
+  the params and the optimizer state.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.core import comm as comm_lib
+from repro_torch.core import selector as sel
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.moe_parallel import ep_capacity, moe_layer_ep
 from repro_torch.mesh import DeviceLike, RankAxis, resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
+from repro_torch.train import optimizer as opt
 
 __all__ = ["local_batch", "slot_buckets", "seq_bucket_rows",
            "compile_decode_plans", "TPDecodeComms", "make_serve_step",
            "make_sched_step", "make_prefill_sched_step", "cache_rows",
            "capture_serve_step", "capture_sched_step", "CapturedStep",
            "CapturedSchedStep", "CaptureError", "make_prefill_step",
-           "StepLayout"]
+           "StepLayout", "init_sharded", "make_dp_communicators",
+           "make_train_step", "TrainStep"]
 
 
 def local_batch(axis: RankAxis, batch: int) -> tuple[int, bool]:
@@ -545,3 +556,257 @@ def make_prefill_step(cfg: ModelConfig, *, device: DeviceLike = None):
             return tf.logits_fn(params, cfg, hidden[:, -1:])[:, 0]
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# the trainer: data-parallel steps, gradients reduced through DP plans
+# ---------------------------------------------------------------------------
+def init_sharded(cfg: ModelConfig, *, device: DeviceLike = None,
+                 seed: int = 0, optimizer_cfg=None):
+    """Seeded params and, with ``optimizer_cfg``, their AdamW state, on
+    ``device`` (default: the CUDA card). The port has no GSPMD: both are
+    whole on the device, and every DP rank of the explicit step reads the
+    one copy."""
+    params = tf.init_params(cfg, device=device, seed=seed)
+    if optimizer_cfg is None:
+        return params, None
+    return params, opt.adamw_init(params)
+
+
+def make_dp_communicators(dp_axes, *, backend: Optional[str] = None,
+                          node_link: sel.LinkModel = sel.UNFITTED) -> dict:
+    """Init-once communicators for the DP gradient-reduction axes (paper
+    §5.2's deployment shape: plan at setup, replay every step).
+    ``dp_axes`` are :class:`~repro_torch.mesh.RankAxis` es, outermost
+    first.
+
+    Two DP axes give ``{"node", "local"}``: a node-major
+    :class:`~repro_torch.mesh.RankGrid` of ``dp_axes[0].n`` nodes of
+    ``dp_axes[1].n`` ranks, reduced by the hierarchical 2PH plans. One
+    gives ``{"flat"}``, none ``{}``. Links default to
+    ``selector.UNFITTED``. ``node_link`` costs the node axis on another
+    link: the reference's is ``selector.DCN``, a TPU constant, which the
+    CPU tests pass to hold every phase's plan to the reference's
+    algorithm."""
+    dp_axes = tuple(dp_axes)
+    if len(dp_axes) > 2:
+        raise ValueError(f"at most two DP axes (node, local), got "
+                         f"{[a.name for a in dp_axes]}")
+    mk = lambda a, **kw: comm_lib.Communicator(  # noqa: E731
+        a.name, n=a.n, device=a.device, backend=backend, **kw)
+    if len(dp_axes) == 2:
+        return {"node": mk(dp_axes[0], link=node_link),
+                "local": mk(dp_axes[1])}
+    if len(dp_axes) == 1:
+        return {"flat": mk(dp_axes[0])}
+    return {}
+
+
+class TrainStep:
+    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``
+    built by :func:`make_train_step`; ``metrics`` holds ``loss``,
+    ``grad_norm`` and ``lr`` as 0-d f32 tensors on the device.
+
+    ``auto``: one unsharded model's loss and gradients over the global
+    batch. ``explicit``: the global batch splits over the ``ndp`` DP ranks
+    (rank = node * L + local, rows ``[r * b/ndp, (r + 1) * b/ndp)``, the
+    reference's batch sharding); each rank's gradients are computed in
+    turn and written into a rank-stacked buffer one leaf at a time
+    (:meth:`rank_grads`), then every leaf is reduced through the DP plans
+    (:meth:`reduce_leaf`) and one rank's copy feeds the update. The loss
+    is the mean of the ranks' losses (the reference's ``pmean``)."""
+
+    def __init__(self, cfg: ModelConfig, opt_cfg, *, mode: str,
+                 ndp: int, comms: dict, global_batch: int, seq_len: int,
+                 remat_policy: str, dp_wire_dtype, device: torch.device):
+        self.cfg = cfg
+        self.opt_cfg = opt_cfg
+        self.mode = mode
+        self.ndp = ndp
+        self.comms = comms
+        self.global_batch = global_batch
+        self.seq_len = seq_len
+        self.remat_policy = remat_policy
+        self.dp_wire_dtype = dp_wire_dtype
+        self.device = device
+
+    def __call__(self, params, opt_state, batch):
+        """One step. The params and the optimizer state are updated in
+        place (the reference step donates them), so a step holds one
+        copy."""
+        loss, grads = self.grads(params, batch)
+        params, opt_state, metrics = opt.adamw_update(
+            self.opt_cfg, params, grads, opt_state, donate=True)
+        return params, opt_state, dict(metrics, loss=loss)
+
+    # -- gradients ---------------------------------------------------------
+    def value_and_grad(self, params, batch):
+        """(loss, the gradient of every leaf in the reference's order)
+        over ``batch`` on one unsharded model."""
+        leaves = tree_lib.leaves(params)
+        with torch.enable_grad():
+            xs = [p.detach().requires_grad_() for p in leaves]
+            loss = tf.loss_fn(tree_lib.unflatten(params, xs), self.cfg,
+                              batch, remat_policy=self.remat_policy,
+                              attn_backend="torch")
+            # a leaf the loss never reads (a frontend arch's embedding)
+            # gets zeros, as under jax.grad
+            grads = list(torch.autograd.grad(loss, xs, allow_unused=True,
+                                             materialize_grads=True))
+        return loss.detach(), grads
+
+    def batch(self, batch) -> dict:
+        """``batch`` on the step's device, its shape checked."""
+        lead = tuple(batch["tokens"].shape[:2])
+        if lead != (self.global_batch, self.seq_len) or tuple(
+                batch["labels"].shape) != lead:
+            raise ValueError(
+                f"the step was built for ({self.global_batch}, "
+                f"{self.seq_len}) batches, got tokens "
+                f"{tuple(batch['tokens'].shape)} and labels "
+                f"{tuple(batch['labels'].shape)}")
+        return {k: v.to(self.device) for k, v in batch.items()}
+
+    def grads(self, params, batch):
+        """(loss, grads as a tree of ``params``' structure): the auto
+        step's, or the explicit step's reduced and averaged copy (rank
+        0's, the one that feeds the update)."""
+        batch = self.batch(batch)
+        if self.mode == "auto":
+            loss, grads = self.value_and_grad(params, batch)
+            return loss, tree_lib.unflatten(params, grads)
+        loss, stacked = self.rank_grads(params, batch)
+        grads = []
+        for i in range(len(stacked)):
+            grads.append(self.reduce_leaf(stacked[i], rank=0))
+            stacked[i] = None               # one stacked leaf at a time
+        return loss, tree_lib.unflatten(params, grads)
+
+    def rank_grads(self, params, batch):
+        """(mean loss over the ranks, one rank-stacked ``(ndp, *shape)``
+        gradient a leaf): rank ``r``'s loss and gradients over its rows
+        of the global batch, computed in turn."""
+        batch = self.batch(batch)
+        rows = self.global_batch // self.ndp
+        leaves = tree_lib.leaves(params)
+        stacked = [torch.empty((self.ndp,) + tuple(p.shape), dtype=p.dtype,
+                               device=p.device) for p in leaves]
+        losses = []
+        for r in range(self.ndp):
+            sub = {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
+            loss, g = self.value_and_grad(params, sub)
+            for i in range(len(g)):
+                stacked[i][r].copy_(g[i])
+                g[i] = None
+            losses.append(loss)
+        return torch.stack(losses).mean(), stacked
+
+    def payload(self, stacked: torch.Tensor) -> torch.Tensor:
+        """A rank-stacked leaf ``(ndp, *shape)`` as the plans' payload:
+        ``reshape(-1, last)`` (``(-1, 1)`` for a 1-d leaf) on every rank,
+        cast to ``dp_wire_dtype`` when set."""
+        ndp, shape = stacked.shape[0], tuple(stacked.shape[1:])
+        x = stacked.reshape(ndp, -1, shape[-1]) if len(shape) >= 2 \
+            else stacked.reshape(ndp, -1, 1)
+        return x if self.dp_wire_dtype is None else x.to(self.dp_wire_dtype)
+
+    def plan_for(self, x: torch.Tensor, comms: Optional[dict] = None):
+        """The plan that reduces payload ``x`` (:meth:`payload`): the
+        hierarchical 2PH plan (two DP axes), the flat AllReduce plan (one),
+        or None (no DP axis). ``comms`` replaces the step's
+        communicators."""
+        comms = self.comms if comms is None else comms
+        if "node" in comms:
+            return comm_lib.hierarchical_plan(
+                tuple(x.shape[1:]), x.dtype, local=comms["local"],
+                node=comms["node"])
+        if "flat" in comms:
+            return comms["flat"].compile("all_reduce", tuple(x.shape[1:]),
+                                         x.dtype)
+        return None
+
+    def reduce_leaf(self, stacked: torch.Tensor, *,
+                    comms: Optional[dict] = None,
+                    rank: Optional[int] = None) -> torch.Tensor:
+        """The reference's ``reduce_leaf`` on every rank at once:
+        ``(ndp, *shape)`` -> every rank's reduced copy over ``ndp``, in
+        the leaf's shape and type; with ``rank``, that rank's copy alone
+        (the one the step's update reads), the others never divided. The
+        payload (:meth:`payload`) is replayed through :meth:`plan_for`'s
+        plan, whose kernel scratch is released after its replay, so one
+        leaf's scratch is held at a time. ``comms`` (e.g. the same axes on
+        the plain executor) replaces the step's communicators; plans run
+        on each communicator's backend."""
+        ndp, shape = stacked.shape[0], tuple(stacked.shape[1:])
+        x = self.payload(stacked)
+        plan = self.plan_for(x, comms)
+        if plan is None:
+            red = x
+        else:
+            red = plan(x)
+            plan.release()
+        if rank is not None:
+            return (red[rank] / ndp).reshape(shape).to(stacked.dtype)
+        return (red / ndp).reshape(stacked.shape).to(stacked.dtype)
+
+    def plan_stats(self) -> dict:
+        """Per communicator: its compile/hit counters and plan count (the
+        reference loop's ``plan_stats``)."""
+        return {name: dict(c.stats, plans=len(c.plans()))
+                for name, c in self.comms.items()}
+
+
+def make_train_step(cfg: ModelConfig, dp_axes, opt_cfg, *,
+                    mode: str = "auto", global_batch: int, seq_len: int,
+                    remat_policy: str = "none",
+                    dp_backend: Optional[str] = None, dp_wire_dtype=None,
+                    fsdp: bool = False, dp_comms: Optional[dict] = None,
+                    device: DeviceLike = None) -> TrainStep:
+    """The train step over the DP axes ``dp_axes`` (``RankAxis`` es,
+    outermost first; they name the device, else ``device``, default the
+    CUDA card). ``mode`` is ``"auto"`` or ``"explicit"`` (see
+    :class:`TrainStep`).
+
+    ``dp_comms``: the explicit mode's communicators
+    (:func:`make_dp_communicators`, built here on ``dp_backend`` when
+    omitted); pass your own to install tuning tables or inspect plan
+    caches. ``dp_backend=None`` is the device's backend: the executor
+    kernel on the card, ``TorchExecutor`` on the CPU. ``dp_wire_dtype`` casts every leaf
+    before its plan (the bf16 wire). The step updates the params and the
+    optimizer state in place, as the reference's donates them.
+
+    ``fsdp=True`` raises: the reference's FSDP is a GSPMD sharding spec
+    over chips, and the port's trainer holds each DP rank's model
+    whole."""
+    if fsdp:
+        raise ValueError(
+            "fsdp=True has no counterpart in the port: the reference's FSDP "
+            "is a GSPMD sharding of the params over chips, and on one card "
+            "the trainer's params are whole (each DP rank reads them)")
+    if mode not in ("auto", "explicit"):
+        raise ValueError(f"mode must be 'auto' or 'explicit', got {mode!r}")
+    dp_axes = tuple(dp_axes)
+    devices = {a.device for a in dp_axes}
+    if len(devices) > 1:
+        raise ValueError(f"DP axes on several devices: "
+                         f"{sorted(map(str, devices))}")
+    dev = devices.pop() if devices else resolve_device(device)
+    if device is not None and resolve_device(device) != dev:
+        raise ValueError(f"the DP axes lie on {dev}, not {device}")
+    ndp = 1
+    for a in dp_axes:
+        ndp *= a.n
+    if mode == "explicit" and global_batch % ndp:
+        raise ValueError(f"a global batch of {global_batch} does not split "
+                         f"over {ndp} DP ranks")
+    if dp_comms is not None and dp_backend is not None:
+        raise ValueError("dp_backend builds the step's communicators; "
+                         "given dp_comms run on their own backend")
+    comms = {}
+    if mode == "explicit":
+        comms = dp_comms if dp_comms is not None else \
+            make_dp_communicators(dp_axes, backend=dp_backend)
+    return TrainStep(cfg, opt_cfg, mode=mode, ndp=ndp if mode == "explicit"
+                     else 1, comms=comms, global_batch=global_batch,
+                     seq_len=seq_len, remat_policy=remat_policy,
+                     dp_wire_dtype=dp_wire_dtype, device=dev)

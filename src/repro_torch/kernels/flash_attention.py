@@ -15,6 +15,10 @@ hd)`` with ``h % h_kv == 0``; query head ``i`` reads KV head ``i // (h
 grouping, so broadcast K/V are never materialised. Pre-broadcast K/V
 (the reference kernel's contract) is the case ``h_kv == h``. Any ``s``:
 a ragged tail block is masked. f32 and bf16, accumulated in f32.
+
+The kernel is a forward only, as the reference's is: with grad mode on it
+refuses q, k or v that require a gradient rather than return an output
+that autograd cannot trace back (training runs the plain core).
 """
 from __future__ import annotations
 
@@ -166,6 +170,17 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        # a ctypes launch records no autograd node: the output would carry
+        # no grad_fn and everything upstream of the core would silently
+        # get no attention gradient
+        raise RuntimeError(
+            "the flash-attention kernel has no backward, and q, k or v "
+            "requires a gradient: train on the plain core "
+            "(transformer.loss_fn(attn_backend='torch'), "
+            "blocks.attention(backend='torch')), or call the kernel under "
+            "torch.no_grad() / torch.inference_mode()")
     from repro_torch.kernels import build
     code = DTYPE_CODES.get(q.dtype)
     if code is None:

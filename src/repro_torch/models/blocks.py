@@ -181,7 +181,10 @@ def attention(p: Params, x, cfg, cos, sin, *, window: Optional[int],
     ``s``. On the CPU (or with ``backend="torch"``) it is the reference's
     plain core: the materialized masked softmax, or the online softmax
     over KV chunks when ``s > cfg.attn_chunk`` and ``s % cfg.attn_chunk
-    == 0``, so the (s, s) logits are never held at long context.
+    == 0``, so the (s, s) logits are never held at long context. The
+    plain core is torch ops that autograd differentiates, and training
+    asks for it by name; the kernel has no backward and raises under
+    autograd.
     """
     nh, _ = padded_heads(cfg)
 

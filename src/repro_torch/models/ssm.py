@@ -123,6 +123,12 @@ def _gate(y, xin, z, p):
     return y * F.silu(z.float())
 
 
+def _shifted(t: torch.Tensor, d: int, new_tail: torch.Tensor):
+    """``t`` with positions ``d:`` of axis -3 replaced by ``new_tail``,
+    out of place."""
+    return torch.cat([t[..., :d, :, :], new_tail], dim=-3)
+
+
 def scan(dA: torch.Tensor, dBx: torch.Tensor) -> torch.Tensor:
     """The recurrence ``h_t = dA_t * h_{t-1} + dBx_t`` from ``h_{-1} = 0``
     over axis -3 of ``(..., s, d_inner, state)`` f32 tensors, in
@@ -130,13 +136,29 @@ def scan(dA: torch.Tensor, dBx: torch.Tensor) -> torch.Tensor:
     ``(a1, b1), (a2, b2) -> (a1 a2, b1 a2 + b2)``, where position t takes
     position t - 2**level's prefix as ``(a1, b1)``. Each level updates
     ``dBx`` then ``dA`` in place behind one temporary of their size;
-    returns ``dBx``, which then holds every ``h_t`` (``dA`` is spent)."""
+    returns ``dBx``, which then holds every ``h_t`` (``dA`` is spent).
+
+    Where autograd records the scan (training), each level writes new
+    tensors instead, the same products and sums: an in-place write would
+    overwrite values the backward saved."""
     s_len = dA.shape[-3]
+    recorded = torch.is_grad_enabled() and (dA.requires_grad
+                                            or dBx.requires_grad)
     d = 1
     while d < s_len:
-        dBx[..., d:, :, :] += dBx[..., :-d, :, :] * dA[..., d:, :, :]
+        step = dBx[..., :-d, :, :] * dA[..., d:, :, :]
+        if recorded:
+            dBx = _shifted(dBx, d, dBx[..., d:, :, :] + step)
+        else:
+            dBx[..., d:, :, :] += step
+        del step
         if 2 * d < s_len:             # the last level needs no dA
-            dA[..., d:, :, :] = dA[..., :-d, :, :] * dA[..., d:, :, :]
+            prod = dA[..., :-d, :, :] * dA[..., d:, :, :]
+            if recorded:
+                dA = _shifted(dA, d, prod)
+            else:
+                dA[..., d:, :, :] = prod
+            del prod
         d *= 2
     return dBx
 

@@ -2,12 +2,14 @@
 ``repro.models.transformer``) for the dense, MoE, hybrid (attention+SSM)
 and encoder families: seeded init, the full-sequence forward
 (``forward``, whose attention core is the flash-attention kernel on the
-card) and, for dense, MoE and hybrid, the decode cache, the one-token
-decode step (a position shared by the batch or one a row) and the
-cache-filling fused prefill step — unsharded (auto) or on rank-stacked TP shards with the
-per-layer collectives replayed through compiled plans (explicit; for MoE
-the same axis carries expert parallelism, for hybrid the SSM branch is
-sharded on its inner dim).
+card; ``remat_policy`` recomputes a group's layers in the backward), the
+training loss (``loss_fn``, on the plain attention core that autograd
+differentiates) and, for dense, MoE and hybrid, the decode cache, the
+one-token decode step (a position shared by the batch or one a row) and
+the cache-filling fused prefill step — unsharded (auto) or on
+rank-stacked TP shards with the per-layer collectives replayed through
+compiled plans (explicit; for MoE the same axis carries expert
+parallelism, for hybrid the SSM branch is sharded on its inner dim).
 
 Parameter layout is the reference's: ``params["layers"]`` is a list
 (length = period) of per-slot layer dicts whose leaves carry a leading
@@ -24,6 +26,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.mesh import DeviceLike, resolve_device
 from repro_torch.models import blocks, ssm
@@ -31,8 +34,8 @@ from repro_torch.models.blocks import rms_norm
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["init_params", "init_cache", "decode_step", "prefill_step",
-           "forward", "embed_tokens", "logits_fn", "layer_windows",
-           "n_groups"]
+           "forward", "loss_fn", "embed_tokens", "logits_fn",
+           "layer_windows", "n_groups", "REMAT_POLICIES"]
 
 FAMILIES = ("dense", "moe", "hybrid", "encoder")
 DECODE_FAMILIES = ("dense", "moe", "hybrid")
@@ -167,29 +170,91 @@ def embed_tokens(params, cfg: ModelConfig, tokens):
     return params["embed"][tokens.long()]
 
 
+REMAT_POLICIES = ("none", "full")
+
+
 def forward(params, cfg: ModelConfig, tokens, *,
-            backend: Optional[str] = None):
+            backend: Optional[str] = None, remat_policy: str = "none"):
     """tokens: (b, s) int — or (b, s, d) float embeddings for frontend
     archs -> the final hidden states (b, s, d), normed. Every layer's
     attention core is one flash-attention kernel launch on the card;
     ``backend="torch"`` runs the plain core instead (``"cuda"`` insists
-    on the kernel). Groups are walked as ``decode_step`` walks them."""
+    on the kernel). Groups are walked as ``decode_step`` walks them.
+
+    ``remat_policy="full"`` wraps each group's layers in
+    ``torch.utils.checkpoint.checkpoint`` (as the reference wraps its scan
+    body in ``jax.checkpoint``): under autograd a group keeps only its
+    input and recomputes the rest in the backward."""
     _check_family(cfg)
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                         f"got {remat_policy!r}")
     x = embed_tokens(params, cfg, tokens)
-    cos, sin = blocks.rope(torch.arange(x.shape[1]), cfg.hd, cfg.rope_theta,
-                           x.device, max_pos=cfg.max_seq)
+    s = x.shape[1]
+    if s > cfg.max_seq:
+        raise ValueError(f"forward(): {s} positions > max_pos {cfg.max_seq}")
+    # positions made on the device and read there: a host tensor's copy
+    # would wait for the stream, once a forward
+    cos, sin = blocks.rope(torch.arange(s, device=x.device), cfg.hd,
+                           cfg.rope_theta, x.device, max_pos=s,
+                           on_device=True)
     wins = layer_windows(cfg)
-    for g in range(n_groups(cfg)):
+    slots = [_per_group(params["layers"][i]) for i in range(len(wins))]
+
+    def body(x, g):
         for i, win in enumerate(wins):
-            x = _run_layer(_group(params["layers"][i], g, False), x, cfg,
-                           win, cos, sin, backend)
+            x = _run_layer(slots[i][g], x, cfg, win, cos, sin, backend)
+        return x
+
+    for g in range(n_groups(cfg)):
+        if remat_policy == "full":
+            x = torch.utils.checkpoint.checkpoint(body, x, g,
+                                                  use_reentrant=False)
+        else:
+            x = body(x, g)
     return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def _per_group(tree) -> list:
+    """The layer params of every group: each leaf unbound along its
+    leading ``groups`` axis into views. Under autograd that is one
+    backward node a leaf, which stacks the groups' gradients once (a view
+    of one group a layer would fill a zero tensor of the whole leaf per
+    layer)."""
+    if isinstance(tree, dict):
+        parts = {k: _per_group(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: parts[k][g] for k in tree} for g in range(n)]
+    return list(tree.unbind(0))
 
 
 def logits_fn(params, cfg: ModelConfig, hidden):
     w = params["embed"].transpose(-1, -2) if cfg.tie_embeddings \
         else params["unembed"]
     return torch.einsum("...bsd,...dv->...bsv", hidden, w).float()
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, remat_policy: str = "none",
+            attn_backend: str = "torch"):
+    """batch: dict(tokens (b, s) [or (b, s, d) frames], labels (b, s)) ->
+    the mean next-token cross entropy, a 0-d f32 tensor (the reference's:
+    a max-shifted logsumexp, the max held constant, minus the gold logit).
+
+    The gold logit is a ``gather``, which in f32 equals the reference's
+    one-hot einsum and spares the ``(b, s, vocab)`` one-hot. The attention
+    core is named here: ``attn_backend="torch"`` is the port of the
+    reference's pure core (``blocks._plain_core``/``_chunked_attn``, torch
+    ops that autograd differentiates), which training needs: the
+    flash-attention kernel (``"cuda"``) has no backward and refuses inputs
+    that need a gradient."""
+    hidden = forward(params, cfg, batch["tokens"], backend=attn_backend,
+                     remat_policy=remat_policy)
+    logits = logits_fn(params, cfg, hidden)
+    labels = batch["labels"].to(logits.device).long()
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    return (logz - gold).mean()
 
 
 def _group(tree, g: int, ranked: bool):

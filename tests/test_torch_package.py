@@ -9,9 +9,12 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core.comm import Communicator
+from repro_torch.distributed import step as st
+from repro_torch.launch import train as launch_train
 from repro_torch.mesh import RankAxis, resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.serve.engine import Engine, ServeConfig
+from repro_torch.train import loop as train_loop
 
 # the suite runs in parallel worker processes: one intra-op thread each
 # keeps these tests from crowding the other workers' cores
@@ -61,6 +64,16 @@ def test_entry_points_need_a_device_without_cuda():
         tf.init_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RankAxis("model", 2)
+    # the trainer's entry points
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        st.init_sharded(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        st.make_train_step(cfg, (), None, global_batch=2, seq_len=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_loop.run(cfg, (), train_loop.TrainConfig(steps=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "qwen3-1.7b", "--reduced", "--steps",
+                           "1"])
 
 
 def test_rank_axis_shards_and_replicates():
