@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases 1,2,14 # build, then the API and traces
     python3 chip_smoke.py --phases 1,2,15 # build, then faults and guardrails
     python3 chip_smoke.py --phases 1,2,16 # build, then the trainer
+    python3 chip_smoke.py --phases 1,2,17 # build, then rwkv6-7b
 
 Phases, each printing one JSON line (any failure raises, exit != 0):
 
@@ -319,6 +320,43 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    made, training tokens/s, the busy share of one profiled 2 x 4 step,
    the peak device memory of each mode.
 
+17. the rwkv6 family in auto mode (the reference serves it so) —
+   rwkv6-7b at full width (32 layers, d_model 4096, d_ff 14336, vocab
+   65536, 64 heads of 64, untied, 7.5 G parameters, seeded random bf16
+   weights): (a) an engine of 8 rows, 16-token prompts then 32 greedy
+   tokens by graph replay and eagerly on the same engine (first-step
+   logits bit-equal, tokens equal), no executor launch, ms/token by the
+   stream's and the device's clock beside the step's byte bound (every
+   weight read once, the recurrent state read and written once), the
+   kernels a step and the busy share; (b) at full width, 4 layers, in
+   f32, the graph's logits at every position of the prompts fed token
+   by token within a relative L2 error of 1e-4 of ``forward``'s, (d)'s
+   trace through the scheduler with streams equal to the sequential
+   run's (a compaction that moves no state parting from them), and the
+   same weights in bf16 within 0.05 of them; (c) at 4 layers, explicit
+   asked for at TP=4: the warning "falling back to auto", the engine in
+   auto with one fallback counted (as the reference's), tokens and
+   first-step logits equal to an auto engine's (the one engine that ends
+   in another mode than asked, on purpose); (d) the ``Scheduler`` over
+   the full model, 8 slots, 8 requests (Poisson 4/s, prompts of 16 to
+   128 tokens, every third at T = 0.8) prefilled token by token through
+   the slot-bucket graphs, fused prefill asked for and off, a prefix
+   cache given and none held: nothing dropped, each bucket's replay
+   bit-equal to the eager step, a row bit-equal whatever its
+   co-residents, wall tokens/s and TTFT, the streams against the
+   sequential run reported beside the cross-bucket drift one prompt
+   gathers in the recurrent state (bucket 1 against 8, in bf16 at 32
+   and 4 layers and in f32), not gated in bf16;
+   (e) ``forward`` at 2 x 1024 tokens, full depth, bf16: ms and tokens/s,
+   and at 4 layers the WKV loop's share of the device time (profiled)
+   and of the wall; (f) the trainer at full width, 4 layers, the fixed 8
+   x 256 batch, 4 AdamW steps, auto and explicit DP 4: losses finite,
+   auto's falling, DP 4 within phase 16's bars of auto's losses and grad
+   norms, 24 executor launches a step (one a gradient leaf) and no
+   library kernel, step 0's reduction bit-equal to the same plans on
+   ``TorchExecutor``; ms a step by part and clock, tokens/s and the
+   peak memory of each mode.
+
 The last lines are the card's nvidia-smi line, one ``{"kernels": [...]}``
 JSON object, and ``{"ok": true, "device": {...}}``. The whole record,
 the kernels line among it, also goes to ``chiprun_out/chip_smoke.json``.
@@ -326,8 +364,8 @@ The kernels line holds one entry per kernel. The executor's times are
 the launch-weighted mean of the main paths' decode mixes, each path's
 own under ``by_path`` (qwen3-1.7b, phi3.5-moe and hymba-1.5b, and with
 phase 13 the serving path, weighted by the kernels each of its buckets
-ran; with phase 16 the trainer's, each mode's plan replays a step over
-its launches a step, kept out of the mean) and every shape's under ``per_shape``; its
+ran; with phases 16 and 17 the trainers', each mode's plan replays a
+step over its launches a step, kept out of the mean) and every shape's under ``per_shape``; its
 ``launches`` are the wrapper's over the main paths (the engines'
 warm-up steps and captures), ``launches_profiled`` the executor kernels
 that the profiler counted over ``replays_profiled`` later replays of
@@ -591,6 +629,28 @@ TRAIN_F32_RTOL, TRAIN_F32_ATOL = 2e-3, 1e-4
 TRAIN_RESTART_AT, TRAIN_RESTART_LAYERS = 4, 4
 TRAIN_TIME_ITERS = 2
 TRAIN_PATH = "train"
+# phase 17: the rwkv6 family in auto mode (the reference serves it so),
+# rwkv6-7b at full width (32 layers, d 4096, d_ff 14336, vocab 65536, 64
+# heads of 64, untied), seeded random bf16 weights
+RWKV_ARCH = "rwkv6-7b"
+# (b), (c) and (e)'s profile: the depth of the short runs
+RWKV_SHORT_LAYERS = 4
+# (b): f32 decode logits at every prompt position against forward's
+# (the two order their matmul sums apart)
+RWKV_F32_REL_TOL = 1e-4
+# (d): 8 requests, Poisson 4/s, prompts uniform in 16..128 tokens, up to
+# 16 new tokens, every third at SERVE_HOT_T
+RWKV_TRACE = dict(seed=3, n_requests=8, rate_rps=4.0, zipf_a=1.2,
+                  max_prompt=128, max_new=16, step_s=0.05)
+RWKV_PROMPTS = (16, 128)
+# (e): the forward's batch and sequence
+RWKV_FORWARD = (2, 1024)
+# (f): the trainer at full width, 4 of 32 layers, 4 steps, auto and DP 4
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_STEPS = 4, 4
+RWKV_TRAIN_MODES = ("auto", "flat4")
+# gradient leaves: 21 a layer, embed, ln_f, unembed
+RWKV_LEAVES = 24
+RWKV_TRAIN_PATH = f"{RWKV_ARCH} train"
 
 RECORD: dict = {}
 
@@ -1011,7 +1071,7 @@ def _profile_replays(eng, steps, ms_per_token):
 
 def _run_engine(cfg, params, prompts, mode, n_decode, count_launches,
                 keep_params=False, kv_quant=False, profile_steps=0,
-                temperature=0.0, seed=0):
+                temperature=0.0, seed=0, tp=TP):
     """One engine on the card (its step captured in a CUDA graph just
     after construction), driven twice from position 0 on the same state: by
     graph replay, then, with the cache zeroed, by the eager step. Returns
@@ -1024,8 +1084,8 @@ def _run_engine(cfg, params, prompts, mode, n_decode, count_launches,
     ``profile_steps``, a profiler count of the executor kernels over that
     many replays with the busy share under replay. With a
     ``temperature``, the tokens are drawn from ``seed`` in both runs.
-    Checks graph against eager: first-step logits bit-equal and every
-    token equal."""
+    ``tp`` ranks stack on the card. Checks graph against eager:
+    first-step logits bit-equal and every token equal."""
     from repro_torch.core.executor import CudaExecutor
     from repro_torch.serve.engine import Engine, ServeConfig
     torch.cuda.synchronize()
@@ -1034,7 +1094,7 @@ def _run_engine(cfg, params, prompts, mode, n_decode, count_launches,
     eng = Engine(cfg, params, ServeConfig(batch=prompts.shape[0],
                                           max_kv=MAX_KV, kv_quant=kv_quant,
                                           temperature=temperature),
-                 tp=TP, mode=mode)
+                 tp=tp, mode=mode)
     eng.capture()
     check(eng.graph is not None, "the engine captured no graph")
     if mode == "explicit":
@@ -3860,14 +3920,15 @@ def _stream_bar(got, base, gaps, offset, margin, label, hold=True):
     return res
 
 
-def _compaction_control(sched, trace, base, step_s):
+def _compaction_control(sched, trace, base, step_s,
+                        margin=SERVE_TIE_MARGIN):
     """The stream bar's planted control: trace A's first
     SERVE_CONTROL_REQUESTS requests again on ``sched`` (rids offset by
     2 x SERVE_RID), its compaction moving a slot without copying its
     cache row (the moved request then reads the freed one's entries).
     Their streams go through :func:`_stream_bar` against the sequential
-    run at SERVE_TIE_MARGIN: a compaction must have happened, and a
-    stream must part past the margin."""
+    run at ``margin``: a compaction must have happened, and a stream must
+    part past the margin."""
     from repro_torch.serve import loadgen
     moved = []
 
@@ -3886,11 +3947,11 @@ def _compaction_control(sched, trace, base, step_s):
     finally:
         del sched._release
     got = {r.rid - 2 * SERVE_RID: sched.streams[r.rid] for r in sub}
-    bar = _stream_bar(got, base, sched.gaps, SERVE_RID, SERVE_TIE_MARGIN,
+    bar = _stream_bar(got, base, sched.gaps, SERVE_RID, margin,
                       "control", hold=False)
     check(len(moved) > 0, "the compaction control moved no slot")
     check(bar["past_margin"] > 0, f"the compaction control passed the "
-          f"stream bar at margin {SERVE_TIE_MARGIN}: {bar}")
+          f"stream bar at margin {margin}: {bar}")
     return dict(bar, compactions=len(moved))
 
 
@@ -5614,7 +5675,7 @@ def _busy_ms(fn) -> float:
     return sum(r[0] for r in _device_rows(prof, 1)) / 1e3
 
 
-def _train_time(cfg, device):
+def _train_time(cfg, device, modes=TRAIN_MODES, iters=TRAIN_TIME_ITERS):
     """ms a step by part, by CUDA events behind a device sleep
     (``device_ms``), each beside whether the sleep covered the host's
     enqueue (where it did not, the part's figure is the host's time, not
@@ -5633,14 +5694,15 @@ def _train_time(cfg, device):
     expanded to every rank, one PyTorch call a leaf, which the port never
     calls), beside their bound (every rank's payload read once and written
     once over HBM). The state is the seeded init's; times do not depend on
-    it."""
+    it. ``modes``: the phase-16 modes timed; ``iters``: the calls of
+    each part a timing averages."""
     from repro_torch import tree
     from repro_torch.distributed import step as st
     from repro_torch.train import optimizer as opt
     out = {}
     batch = _train_batch(cfg)
     oc = _train_opt(TRAIN_STEPS)
-    for name in TRAIN_MODES:
+    for name in modes:
         _free()
         t = time.perf_counter()
         axes = _train_axes(name, device)
@@ -5658,7 +5720,7 @@ def _train_time(cfg, device):
         def fwd_bwd():
             step.value_and_grad(params, sub)
         rec["fwd_bwd_ms"], rec["sleep_covered"]["fwd_bwd"] = device_ms(
-            fwd_bwd, TRAIN_TIME_ITERS)
+            fwd_bwd, iters)
         rec["host_syncs"]["fwd_bwd"] = _host_syncs(fwd_bwd)
         rec["fwd_bwd_busy_ms"] = _busy_ms(fwd_bwd)
         if name != "auto":
@@ -5671,17 +5733,16 @@ def _train_time(cfg, device):
                     step.reduce_leaf(x, rank=0)
 
             rec["reduce_ms"], rec["sleep_covered"]["reduce"] = device_ms(
-                reduce, TRAIN_TIME_ITERS)
-            rec["reduce_wall_ms"] = wall_ms(reduce, TRAIN_TIME_ITERS)
+                reduce, iters)
+            rec["reduce_wall_ms"] = wall_ms(reduce, iters)
             rec["host_syncs"]["reduce"] = _host_syncs(reduce)
             replay = dict(kernel=0.0, plain=0.0, library=0.0)
             cov = dict(kernel=True, plain=True, library=True)
             for leaf in stacked:
                 x = step.payload(leaf)
-                for part, comms, iters in (("kernel", None, TRAIN_TIME_ITERS),
-                                           ("plain", plain, 1),
-                                           ("library", None,
-                                            TRAIN_TIME_ITERS)):
+                for part, comms, n in (("kernel", None, iters),
+                                       ("plain", plain, 1),
+                                       ("library", None, iters)):
                     if part == "library":
                         plan = None
                         fn = lambda: x.sum(  # noqa: E731
@@ -5689,7 +5750,7 @@ def _train_time(cfg, device):
                     else:
                         plan = step.plan_for(x, comms)
                         fn = lambda: plan(x)  # noqa: E731
-                    ms, c = device_ms(fn, iters)
+                    ms, c = device_ms(fn, n)
                     replay[part] += ms
                     cov[part] = cov[part] and c
                     # one plan's scratch held at a time, as in the step
@@ -5716,7 +5777,7 @@ def _train_time(cfg, device):
         def update():
             opt.adamw_update(oc, params, grads, state, donate=True)
         rec["update_ms"], rec["sleep_covered"]["update"] = device_ms(
-            update, TRAIN_TIME_ITERS)
+            update, iters)
         rec["host_syncs"]["update"] = _host_syncs(update)
         # each part's figure by its clock: "device" where the sleep
         # covered the enqueue, else "wall" (the host held the device back)
@@ -5982,12 +6043,498 @@ def phase_train(device):
                                             for v in vs_plain.values()))
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the rwkv6 family (rwkv6-7b), auto mode
+# ---------------------------------------------------------------------------
+def _rwkv_cfg(n_layers=None, dtype="bfloat16"):
+    from repro_torch import configs
+    cfg = configs.get_config(RWKV_ARCH)
+    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                               dtype=dtype)
+
+
+def _rwkv_decode_bytes(params, cache, batch) -> int:
+    """The bytes one decode step must move: every weight read once (of
+    the embedding table only the batch's rows), the recurrent state read
+    once and written once."""
+    from repro_torch import tree
+    emb = params["embed"]
+    weights = sum(x.numel() * x.element_size() for x in tree.leaves(params))
+    weights += (batch - emb.shape[0]) * emb.shape[1] * emb.element_size()
+    state = sum(x.numel() * x.element_size() for x in tree.leaves(cache))
+    return weights + 2 * state
+
+
+def _rwkv_decode_loop(cfg, device):
+    """The WKV recurrence's share of a decode step: ``rwkv6.wkv_scan`` at
+    the step's shapes (one token, BATCH rows, every head), once a layer,
+    on seeded inputs (its kernels do not depend on the values): device
+    ms by CUDA events and busy ms profiled, a step's worth."""
+    from repro_torch.models import rwkv6
+    g = torch.Generator(device=device).manual_seed(32)
+    nh, hd = cfg.d_model // rwkv6.HEAD, rwkv6.HEAD
+
+    def rand(*shape, uniform=False):
+        fn = torch.rand if uniform else torch.randn
+        return fn(shape, device=device, generator=g)
+
+    args = ([rand(BATCH, 1, nh, hd) for _ in range(3)]
+            + [rand(BATCH, 1, nh, hd, uniform=True), rand(nh, hd),
+               rand(BATCH, nh, hd, hd)])
+
+    def step():
+        with torch.inference_mode():
+            for _ in range(cfg.n_layers):
+                rwkv6.wkv_scan(*args)
+
+    ms, covered = device_ms(step, MAIN_DECODE_STEPS)
+    return dict(wkv_loop_ms=ms, wkv_loop_sleep_covered=covered,
+                wkv_loop_busy_ms=_busy_ms(step))
+
+
+def _rwkv_engine(cfg, params, prompts, device):
+    """(a): rwkv6-7b at full width and depth, auto, by graph replay then
+    eagerly on one engine (``_run_engine``: first-step logits bit-equal,
+    tokens equal); no executor launch; ms/token by the stream's clock
+    (CUDA events around the decode loop, the host's share in it) and the
+    device's (the profiler's kernel time a replay), kernels a step, the
+    step's byte bound, and the WKV loop's share of the step
+    (:func:`_rwkv_decode_loop`)."""
+    from repro_torch.models import transformer as tf
+    r = _run_engine(cfg, params, prompts, "auto", DECODE, False,
+                    profile_steps=MAIN_DECODE_STEPS, tp=1)
+    check(r["graph_launches"] == 0 and r["profiled_executor_kernels"] == 0,
+          f"{RWKV_ARCH}: executor launches in auto mode")
+    check(bool(torch.isfinite(r["first"]).all()
+               and torch.isfinite(r["last"]).all())
+          and r["tokens"].shape == (BATCH, DECODE),
+          f"{RWKV_ARCH}: non-finite logits or tokens of the wrong shape")
+    cache = tf.init_cache(cfg, BATCH, MAX_KV, device=device)
+    nbytes = _rwkv_decode_bytes(params, cache, BATCH)
+    del cache
+    rec = _run_record(r)
+    rec.update(_rwkv_decode_loop(cfg, device))
+    rec["wkv_loop_busy_share"] = rec["wkv_loop_busy_ms"] / r["device_busy_ms"]
+    rec.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_bytes=nbytes,
+               kernels_per_step=r["profiled_kernel_records"]
+               / r["profiled_replays"],
+               graph_over_bound=r["ms_per_token"]
+               / (nbytes / HBM_BYTES_PER_S * 1e3))
+    emit("rwkv6_engine", **rec)
+    return rec
+
+
+def _rwkv_stepwise(eng, tokens):
+    """Every position's logits of ``tokens`` (b, s) fed token by token
+    through the engine's captured step, from position 0."""
+    out = []
+    for t in range(tokens.shape[1]):
+        out.append(eng._run_step(tokens[:, t]).float())
+        eng.pos += 1
+    return torch.stack(out, dim=1)
+
+
+def _rwkv_f32(device, prompts):
+    """(b), (c) at full width, RWKV_SHORT_LAYERS layers. (b) In f32, the
+    decode graph's logits at every prompt position against ``forward``'s
+    within RWKV_F32_REL_TOL (relative L2), and (d)'s trace through the
+    scheduler, streams equal to the sequential run's (the compaction
+    control parting from them) and the cross-bucket drift; the same
+    weights in bf16 through the graph within BF16_REL_TOL of the f32
+    logits, and their cross-bucket drift. (c) bf16,
+    explicit asked for at TP=4: the engine warns "falling back to auto",
+    serves auto with one fallback counted (the reference's count), and
+    its first-step logits and tokens equal an auto engine's; no executor
+    launch."""
+    import warnings
+
+    from repro_torch import tree
+    from repro_torch.core.executor import CudaExecutor
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import loadgen
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.scheduler import Scheduler
+    cfg32 = _rwkv_cfg(RWKV_SHORT_LAYERS, "float32")
+    p32 = tf.init_params(cfg32, torch.Generator(device=device)
+                         .manual_seed(31), device=device)
+    toks = torch.as_tensor(prompts, device=device)
+    with torch.inference_mode():
+        want = tf.logits_fn(p32, cfg32, tf.forward(p32, cfg32, toks))
+    scfg = ServeConfig(batch=BATCH, max_kv=MAX_KV)
+    eng = Engine(cfg32, p32, scfg, tp=1)
+    eng.capture()
+    got32 = _rwkv_stepwise(eng, toks)
+    del eng
+    rel32 = _rel(got32, want)
+    err32 = _max_abs_err(got32, want)
+    check(rel32 <= RWKV_F32_REL_TOL, f"{RWKV_ARCH} f32: decode vs forward "
+          f"rel L2 {rel32} (max abs {err32})")
+    # the scheduler in f32: streams equal to the sequential run's, the
+    # compaction control parting from them, the cross-bucket drift
+    label = f"{RWKV_ARCH} f32 scheduler"
+    step_s = RWKV_TRACE["step_s"]
+    sched = _serve_scheduler()(Engine(cfg32, p32, scfg, tp=1),
+                               max_slots=BATCH, prefill_chunk=SERVE_CHUNK,
+                               gaps=True)
+    trace = _rwkv_trace(cfg32.vocab)
+    longest = max(trace, key=lambda r: len(r.prompt))
+    loadgen.run_load(sched, trace, step_s=step_s)
+    m = sched.metrics()
+    check(m["completed"] == len(trace) and m["dropped"] == 0,
+          f"{label}: {m}")
+    streams = dict(sched.streams)
+    base = _sequential(sched, trace, step_s)
+    bar = _stream_bar(streams, base, sched.gaps, SERVE_RID, 0, label)
+    check(bar["equal"] == len(trace), f"{label}: streams differ from the "
+          f"sequential run's")
+    sched_f32 = dict(requests=len(trace), tokens=m["tokens"],
+                     bucket_steps=m["bucket_steps"], vs_sequential=bar,
+                     compaction_control=_compaction_control(
+                         sched, trace, base, step_s, margin=0),
+                     drift=_rwkv_bucket_drift(sched, longest))
+    del sched
+    _free()
+    cfg16 = _rwkv_cfg(RWKV_SHORT_LAYERS)
+    p16 = tree.unflatten(p32, [x.to(torch.bfloat16)
+                               for x in tree.leaves(p32)])
+    del p32, want
+    _free()
+    eng = Engine(cfg16, p16, scfg, tp=1)
+    eng.capture()
+    got16 = _rwkv_stepwise(eng, toks)
+    del eng
+    drift16 = _rwkv_bucket_drift(Scheduler(Engine(cfg16, p16, scfg, tp=1),
+                                           max_slots=BATCH), longest)
+    _free()
+    rel16 = _rel(got16, got32)
+    check(rel16 <= BF16_REL_TOL, f"{RWKV_ARCH} bf16 vs f32 at "
+          f"{RWKV_SHORT_LAYERS} layers: rel L2 {rel16}")
+    # (c) explicit asked for: the reference's fallback to auto
+    before = CudaExecutor.launches
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ex = Engine(cfg16, p16, scfg, tp=TP, mode="explicit")
+    said = [str(w.message) for w in caught]
+    check(any("falling back to auto" in m for m in said),
+          f"{RWKV_ARCH} explicit: no fallback warning in {said}")
+    check(ex.mode == "auto" and ex.requested_mode == "explicit"
+          and ex.health["fallbacks"] == 1 and not ex.decode_plans,
+          f"{RWKV_ARCH} explicit: mode {ex.mode}, health {ex.health}")
+    ex.capture()
+    got_ex = _serve(ex, prompts, DECODE)
+    del ex
+    auto = Engine(cfg16, p16, scfg, tp=1)
+    auto.capture()
+    got_auto = _serve(auto, prompts, DECODE)
+    _healthy(auto, f"{RWKV_ARCH} auto, {RWKV_SHORT_LAYERS} layers")
+    del auto, p16
+    _free()
+    check(torch.equal(got_ex["first"], got_auto["first"])
+          and np.array_equal(got_ex["tokens"], got_auto["tokens"]),
+          f"{RWKV_ARCH}: the fallen-back engine differs from auto")
+    check(CudaExecutor.launches == before,
+          f"{RWKV_ARCH}: executor launches on the auto path")
+    out = dict(
+        layers=RWKV_SHORT_LAYERS, f32_decode_vs_forward=dict(
+            rel_l2=rel32, max_abs_err=err32, tol=RWKV_F32_REL_TOL,
+            positions=int(toks.shape[1])),
+        f32_scheduler=sched_f32,
+        bf16_vs_f32=dict(rel_l2=rel16, tol=BF16_REL_TOL),
+        bf16_drift=drift16,
+        explicit_requested=dict(mode="auto", fallbacks=1, warnings=said,
+                                tokens_equal_auto=True,
+                                ms_per_token=got_ex["ms_per_token"]))
+    emit("rwkv6_short", **out)
+    return out
+
+
+def _rwkv_trace(vocab):
+    """RWKV_TRACE's arrivals and budgets with prompt lengths drawn
+    uniformly from RWKV_PROMPTS (a seeded numpy stream); every third
+    request at SERVE_HOT_T."""
+    trace = _serve_trace(RWKV_TRACE, vocab)
+    rng = np.random.default_rng(RWKV_TRACE["seed"] + 1)
+    lo, hi = RWKV_PROMPTS
+    return [dataclasses.replace(r, prompt=rng.integers(
+        0, vocab, int(rng.integers(lo, hi + 1))).astype(np.int32))
+        for r in trace]
+
+
+def _rwkv_bucket_drift(sched, req):
+    """The cross-bucket difference the recurrent state gathers: ``req``'s
+    prompt, then its greedy continuation at bucket 1 (RWKV_TRACE's
+    ``max_new`` tokens), fed alone from a zero state through the
+    scheduler's graph at bucket 1 and again, the same tokens, at the top
+    bucket (its other rows inactive): the largest |logit difference| over
+    the continuation's steps. Only the row count differs, so cuBLAS's
+    kernels for it, not the code path; the cache is put back after."""
+    top = sched.max_slots
+    saved = _snapshot(sched.cache)
+    toks = [int(t) for t in req.prompt]
+    n_prompt = len(toks)
+    logits = {}
+    for b in (1, top):
+        for leaves in sched.cache.values():
+            for leaf in leaves:
+                leaf.zero_()
+        rows = []
+        for t in range(n_prompt + RWKV_TRACE["max_new"]):
+            if t == len(toks):
+                toks.append(int(rows[-1].argmax()))
+            x = np.zeros((3, b), np.int64)
+            x[:, 0] = (toks[t], t, 1)
+            rows.append(sched.run_step(b, torch.from_numpy(x),
+                                       graph=True)[0].float().clone())
+        logits[b] = torch.stack(rows[n_prompt - 1:])
+    _restore(sched.cache, saved)
+    diff = (logits[1] - logits[top]).abs()
+    return dict(rid=req.rid, prompt_len=n_prompt, steps=int(diff.shape[0]),
+                max_abs=diff.max().item(),
+                max_abs_by_step=diff.amax(-1).tolist())
+
+
+def _rwkv_scheduler(cfg, params):
+    """(d): the Scheduler over an auto rwkv6-7b engine at full depth, 8
+    slots, token-by-token prefill through the slot-bucket graphs (fused
+    prefill asked for and off, a prefix cache given and none held):
+    every request done, none dropped; each bucket's replay bit-equal to
+    the eager step and a row bit-equal whatever its co-residents
+    (``_bucket_checks``); wall tokens/s, TTFT. The streams against the
+    sequential run are reported beside the cross-bucket drift
+    (:func:`_rwkv_bucket_drift`), not gated: in bf16 the drift a
+    recurrent state gathers over a prompt passes phase 13's margin (the
+    f32 run of ``_rwkv_f32`` holds the streams equal)."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.prefix_cache import PrefixCache
+    Sched = _serve_scheduler()
+    label = f"{RWKV_ARCH} scheduler"
+    eng = Engine(cfg, params, ServeConfig(batch=BATCH, max_kv=MAX_KV), tp=1)
+    sched = Sched(eng, max_slots=BATCH, prefill_chunk=SERVE_CHUNK,
+                  fused_prefill=True, gaps=True,
+                  prefix_cache=PrefixCache(capacity_tokens=1 << 16))
+    check(sched.prefix_cache is None and not sched.fused_prefill,
+          f"{label}: a prefix cache or fused prefill on a recurrent cache")
+    check(all(g.launches == 0 for g in sched.graphs.values()),
+          f"{label}: executor launches captured")
+    trace = _rwkv_trace(cfg.vocab)
+    step_s = RWKV_TRACE["step_s"]
+    run = _drive(sched, trace, step_s)
+    m = sched.metrics()
+    check(m["completed"] == len(trace) and m["dropped"] == 0
+          and m["prefix_hits"] == 0, f"{label}: {m}")
+    _healthy(sched, label)
+    streams = dict(sched.streams)
+    base = _sequential(sched, trace, step_s)
+    bar = _stream_bar(streams, base, sched.gaps, SERVE_RID,
+                      SERVE_TIE_MARGIN, label, hold=False)
+    drift = _rwkv_bucket_drift(sched, max(trace, key=lambda r: len(r.prompt)))
+    buckets = _bucket_checks(sched, 0, label)
+    out = dict(requests=len(trace),
+               prompt_lens=[int(len(r.prompt)) for r in trace],
+               tokens=run["tokens"], wall_ms=run["wall_ms"],
+               tokens_per_s=run["tokens_per_s"],
+               ttft_wall_s=run["ttft_wall_s"],
+               decode_tick_wall_ms=run["decode_tick_wall_ms"],
+               bucket_steps=m["bucket_steps"], steps=m["steps"],
+               micro_steps=m["micro_steps"], drift=drift,
+               vs_sequential=bar, buckets=buckets)
+    emit("rwkv6_scheduler", **out)
+    del sched, eng
+    _free()
+    return out
+
+
+def _rwkv_forward(cfg, params, device):
+    """(e): ``forward`` at RWKV_FORWARD (b, s) in bf16, full depth: ms (CUDA
+    events, one warm call first) and tokens/s; then, profiled at
+    RWKV_SHORT_LAYERS layers (every layer has the same shapes), the
+    device time in the WKV loop (``rwkv6.wkv_scan`` on the inputs the
+    forward gave it) over the forward's, and the loop's share of the
+    forward's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import rwkv6
+    from repro_torch.models import transformer as tf
+    b, s = RWKV_FORWARD
+    toks = torch.randint(0, cfg.vocab, (b, s), device=device,
+                         generator=torch.Generator(device=device)
+                         .manual_seed(41))
+
+    def fwd(c, p):
+        with torch.inference_mode():
+            return tf.forward(p, c, toks)
+
+    hidden = fwd(cfg, params)
+    check(bool(torch.isfinite(hidden).all()) and hidden.shape
+          == (b, s, cfg.d_model), f"{RWKV_ARCH} forward: {hidden.shape}")
+    del hidden
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fwd(cfg, params)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1)
+    short = _rwkv_cfg(RWKV_SHORT_LAYERS)
+    sp = dict(params, layers=[{k: v[:RWKV_SHORT_LAYERS]
+                               for k, v in params["layers"][0].items()}])
+    scans, orig = [], rwkv6.wkv_scan
+
+    def spy(*args):
+        scans.append([a.clone() for a in args])
+        return orig(*args)
+
+    rwkv6.wkv_scan = spy
+    try:
+        fwd(short, sp)
+    finally:
+        rwkv6.wkv_scan = orig
+    check(len(scans) == RWKV_SHORT_LAYERS, f"{len(scans)} WKV loops")
+
+    def loops():
+        with torch.inference_mode():
+            for a in scans:
+                orig(*a)
+
+    short_ms = wall_ms(lambda: fwd(short, sp), 1)
+    loop_ms = wall_ms(loops, 1)
+    busy = {}
+    for name, fn in (("forward", lambda: fwd(short, sp)), ("loop", loops)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = _device_rows(prof, 1)
+        busy[name] = dict(ms=sum(r[0] for r in rows) / 1e3,
+                          kernels=sum(r[1] for r in rows))
+    del scans
+    _free()
+    out = dict(batch=b, seq=s, n_layers=cfg.n_layers, ms=ms,
+                tokens_per_s=b * s / ms * 1e3,
+                profiled_layers=RWKV_SHORT_LAYERS,
+                short_forward_ms=short_ms, short_loop_ms=loop_ms,
+                loop_wall_share=loop_ms / short_ms,
+                device_busy_ms=busy["forward"]["ms"],
+                loop_device_ms=busy["loop"]["ms"],
+                loop_device_share=busy["loop"]["ms"] / busy["forward"]["ms"],
+                kernels=busy["forward"]["kernels"],
+                loop_kernels=busy["loop"]["kernels"])
+    emit("rwkv6_forward", **out)
+    return out
+
+
+def _rwkv_train(device):
+    """(f): the trainer at full width, RWKV_TRAIN_LAYERS layers, the
+    fixed 8 x 256 batch, RWKV_TRAIN_STEPS AdamW steps, auto and explicit
+    DP 4 (one flat AllReduce plan a leaf): losses finite, auto's falling,
+    DP 4 within phase 16's bars of auto's losses and grad norms step by
+    step, exactly one executor launch a leaf (24) a step and no library
+    kernel, step 0's reduction bit-equal to the same plans on
+    ``TorchExecutor`` (within the fold bound across ranks); ms a step by
+    part and clock, tokens/s, peak memory."""
+    cfg = _rwkv_cfg(RWKV_TRAIN_LAYERS)
+    runs = {name: _train_run(cfg, name, device, steps=RWKV_TRAIN_STEPS)[0]
+            for name in RWKV_TRAIN_MODES}
+    auto, dp = runs["auto"], runs["flat4"]
+    for name, r in runs.items():
+        check(bool(np.isfinite(r["losses"]).all()),
+              f"{RWKV_ARCH} train {name}: losses {r['losses']}")
+        check(not r["library_launches"], f"{RWKV_ARCH} train {name}: "
+              f"library kernels launched {r['library_launches']}")
+    check(auto["losses"][-1] < auto["losses"][0],
+          f"{RWKV_ARCH} train auto: the loss did not fall {auto['losses']}")
+    check(auto["launches"] == 0 and dp["launches_per_step"]
+          == [RWKV_LEAVES] * RWKV_TRAIN_STEPS,
+          f"{RWKV_ARCH} train: executor launches a step "
+          f"{dp['launches_per_step']} (auto {auto['launches']}), want "
+          f"{RWKV_LEAVES}")
+    gaps = _train_gaps(dp, auto)
+    check(gaps["loss"] <= TRAIN_LOSS_BAR and gaps["grad_norm"]
+          <= TRAIN_GNORM_BAR, f"{RWKV_ARCH} train DP 4 vs auto: {gaps}")
+    vs_plain = _train_kernel_vs_plain(cfg, "flat4", device)
+    check(len(vs_plain["leaves"]) == RWKV_LEAVES,
+          f"{RWKV_ARCH}: {len(vs_plain['leaves'])} gradient leaves")
+    timing = _train_time(cfg, device, modes=RWKV_TRAIN_MODES, iters=1)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    summary = {name: dict(step_ms_median=float(np.median(r["step_ms"][1:])),
+                          tokens_per_s=tokens / float(
+                              np.median(r["step_ms"][1:])) * 1e3,
+                          peak_gb=r["peak_gb"], losses=r["losses"],
+                          grad_norms=r["grad_norms"])
+               for name, r in runs.items()}
+    tm = timing["flat4"]
+    by_mode = {"flat4": dict(
+        launches=dp["launches"], launches_per_step=RWKV_LEAVES,
+        ms=tm["replay_ms"] / RWKV_LEAVES,
+        plain_ms=tm["replay_plain_ms"] / RWKV_LEAVES,
+        bound_ms=tm["replay_bound_ms"] / RWKV_LEAVES,
+        library_ms=tm["replay_library_ms"] / RWKV_LEAVES,
+        replay_ms=tm["replay_ms"], reduce_step_ms=tm["reduce_ms"])}
+    rec = dict(n_layers=RWKV_TRAIN_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               steps=RWKV_TRAIN_STEPS, leaves=RWKV_LEAVES, summary=summary,
+               gaps=gaps, bars=dict(loss=TRAIN_LOSS_BAR,
+                                    grad_norm=TRAIN_GNORM_BAR),
+               kernel_vs_plain=vs_plain, timing=timing,
+               plan_stats=dp["plan_stats"])
+    emit("rwkv6_train", **rec)
+    return rec, dict(by_mode=by_mode, max_abs_err=vs_plain["max_abs_err"])
+
+
+def phase_rwkv6(device):
+    """Phase 17: the rwkv6 family (see the module docstring)."""
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _rwkv_cfg()
+    sec = {}
+    t = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=device)
+                            .manual_seed(30), device=device)
+    sec["init"] = time.perf_counter() - t
+    prompts = np.random.RandomState(30).randint(
+        0, cfg.vocab, (BATCH, PROMPT)).astype(np.int64)
+    t = time.perf_counter()
+    engine = _rwkv_engine(cfg, params, prompts, device)
+    sec["engine"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sched = _rwkv_scheduler(cfg, params)
+    sec["scheduler"] = time.perf_counter() - t
+    t = time.perf_counter()
+    forward = _rwkv_forward(cfg, params, device)
+    sec["forward"] = time.perf_counter() - t
+    del params
+    _free()
+    t = time.perf_counter()
+    short = _rwkv_f32(device, prompts)
+    sec["short"] = time.perf_counter() - t
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    t = time.perf_counter()
+    train, train_path = _rwkv_train(device)
+    sec["train"] = time.perf_counter() - t
+    emit("rwkv6", card=RECORD["device"]["nvidia_smi"], arch=RWKV_ARCH,
+         n_layers=cfg.n_layers, d_model=cfg.d_model, d_ff=cfg.d_ff,
+         vocab=cfg.vocab, params=cfg.param_count(), batch=BATCH,
+         prompt=PROMPT, decode=DECODE,
+         ms_per_token=engine["ms_per_token"],
+         eager_ms_per_token=engine["eager_ms_per_token"],
+         decode_bound_ms=engine["bound_ms"],
+         scheduler_tokens_per_s=sched["tokens_per_s"],
+         forward_ms=forward["ms"],
+         loop_device_share=forward["loop_device_share"],
+         train_step_ms={k: v["step_ms_median"]
+                        for k, v in train["summary"].items()},
+         serve_peak_memory_gb=serve_peak,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         seconds_by_part=sec, seconds=time.perf_counter() - t0)
+    return train_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16",
+                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases to run (default 1-6 and "
-                         "8-16; 7 profiles a decode step)")
+                         "8-17; 7 profiles a decode step)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -6007,7 +6554,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
     (max_err, launches, timing, coll, moe, prefill, hier, hybrid, serve,
-     api, train) = (None,) * 11
+     api, train, rwkv) = (None,) * 12
     if 2 in phases:
         phase_build()
     if 3 in phases:
@@ -6038,23 +6585,29 @@ def main(argv=None) -> int:
         phase_chaos(device)
     if 16 in phases:
         train = phase_train(device)
+    if 17 in phases:
+        rwkv = phase_rwkv6(device)
     kernels = []
-    train_path = None
-    if train is not None:
-        # the trainer (phase 16): the executor's launches over the explicit
-        # runs (2 x 4: 3 a leaf a step; flat DP 4: one), and its times a
-        # launch, each mode's plan replays over its launches a step, weighted
-        # by the modes' launches. Kept out of the decode paths' weighted
-        # mean: a gradient leaf's launch is milliseconds
-        tb = train["by_mode"]
+    # the trainers (phases 16, 17): the executor's launches over the
+    # explicit runs (2 x 4: 3 a leaf a step; flat DP 4: one), and its times
+    # a launch, each mode's plan replays over its launches a step, weighted
+    # by the modes' launches. Kept out of the decode paths' weighted mean:
+    # a gradient leaf's launch is milliseconds
+    train_paths = {}
+    for path, rec in ((TRAIN_PATH, train), (RWKV_TRAIN_PATH, rwkv)):
+        if rec is None:
+            continue
+        tb = rec["by_mode"]
         n_train = sum(v["launches"] for v in tb.values())
-        train_path = dict(
+        train_paths[path] = dict(
             launches=n_train,
             launches_per_step={m: v["launches_per_step"]
                                for m, v in tb.items()},
             **{k: sum(v[k] * v["launches"] for v in tb.values()) / n_train
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             per_mode=tb)
+    train_errs = [rec["max_abs_err"] for rec in (train, rwkv)
+                  if rec is not None]
     if timing is not None:
         # each main path's per-step launch mix at full occupancy (every
         # plan family at its top bucket): qwen3-1.7b's layer AllReduces
@@ -6134,9 +6687,8 @@ def main(argv=None) -> int:
         shapes = timing + (serve["executor_time"] if serve else [])
         errs = [e for e in [max_err] + [t["max_abs_err"] for t in shapes]
                 if e is not None]
-        if train_path is not None:
-            by_path[TRAIN_PATH] = train_path
-            errs.append(train["max_abs_err"])
+        by_path.update(train_paths)
+        errs += train_errs
         kernels.append(dict(
             name="dsl_executor", route="cuda", source=KERNEL_SOURCE,
             replaces=REPLACES, max_abs_err=max(errs),
@@ -6155,15 +6707,18 @@ def main(argv=None) -> int:
             # phase 14: the traced kernel's µs over the untraced one's, at
             # every traced plan of (c) (median, worst, median by size)
             traced_overhead=api))
-    elif train_path is not None:
-        # without phase 6 the executor's entry is the trainer's alone
+    elif train_paths:
+        # without phase 6 the executor's entry is the trainers' alone, the
+        # paths weighted by their launches
+        n_train = sum(v["launches"] for v in train_paths.values())
         kernels.append(dict(
             name="dsl_executor", route="cuda", source=KERNEL_SOURCE,
-            replaces=REPLACES, max_abs_err=train["max_abs_err"],
-            launches=train_path["launches"],
-            **{k: train_path[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "library_ms")},
-            bound_by="bytes", by_path={TRAIN_PATH: train_path}))
+            replaces=REPLACES, max_abs_err=max(train_errs),
+            launches=n_train,
+            **{k: sum(v[k] * v["launches"] for v in train_paths.values())
+               / n_train for k in ("ms", "plain_ms", "bound_ms",
+                                   "library_ms")},
+            bound_by="bytes", by_path=train_paths))
     if hier is not None:
         # the executor's group view on phase 11's path, apart from the
         # decode mixes above: 14 hierarchical replays of 3 launches each.

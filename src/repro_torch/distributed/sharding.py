@@ -36,6 +36,7 @@ import torch
 from repro_torch.mesh import RankAxis
 from repro_torch.models.blocks import padded_heads
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.rwkv6 import STATE_NAMES
 
 __all__ = ["explicit_decode_supported", "explicit_decode_params",
            "auto_decode_params", "auto_decode_cache", "SHARD_DIMS"]
@@ -54,7 +55,8 @@ def explicit_decode_supported(cfg: ModelConfig, tp: int) -> tuple[bool, str]:
     size ``tp``? The (padded) heads must divide; dense and hybrid tensor
     parallelism also needs ``d_ff`` to divide, MoE expert parallelism
     the expert count (``d_ff`` does not matter: experts stay whole), and
-    the hybrid SSM branch its inner dim ``d_model``."""
+    the hybrid SSM branch its inner dim ``d_model``. Any other family
+    (rwkv6, encoder) stays on auto, as in the reference."""
     if tp <= 1:
         return False, "no TP axis of size > 1: nothing to make explicit"
     if cfg.family not in ("dense", "moe", "hybrid"):
@@ -168,7 +170,13 @@ def auto_decode_cache(cache: dict) -> dict:
     """The auto layout of an explicit decode cache (``init_cache(...,
     ranks=n)``): rank 0's copy of the replicated KV leaves and their
     int8 scales, the SSM state's rank shards ``(n, groups, b, d/n,
-    state)`` joined along ``d`` into ``(groups, b, d, state)``."""
-    return {name: [(_unshard(leaf, 2) if name == "ssm" else leaf[0].clone())
-                   for leaf in leaves]
+    state)`` joined along ``d`` into ``(groups, b, d, state)``. The
+    rwkv6 family's state has no explicit layout: its leaves pass through
+    as copies."""
+    def auto(name, leaf):
+        if name in STATE_NAMES:
+            return leaf.clone()
+        return _unshard(leaf, 2) if name == "ssm" else leaf[0].clone()
+
+    return {name: [auto(name, leaf) for leaf in leaves]
             for name, leaves in cache.items()}

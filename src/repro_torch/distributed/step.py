@@ -50,7 +50,8 @@ from repro_torch.train import optimizer as opt
 
 __all__ = ["local_batch", "slot_buckets", "seq_bucket_rows",
            "compile_decode_plans", "TPDecodeComms", "make_serve_step",
-           "make_sched_step", "make_prefill_sched_step", "cache_rows",
+           "make_sched_step", "make_prefill_sched_step", "batch_axis",
+           "cache_rows",
            "capture_serve_step", "capture_sched_step", "CapturedStep",
            "CapturedSchedStep", "CaptureError", "make_prefill_step",
            "StepLayout", "init_sharded", "make_dp_communicators",
@@ -104,10 +105,12 @@ def compile_decode_plans(cfg: ModelConfig, comm, *, batch_local: int,
     a ``batch_local * s`` row bucket to ``layer_allreduce`` (and its
     capacity to ``moe_alltoall``), so a prefill micro-step replays the
     same plan families at a larger bucket; ``logits_allgather`` needs
-    none (fused prefill makes no logits)."""
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    none (fused prefill makes no logits). They serve the explicit step
+    alone, so a family without one (rwkv6, served on auto) raises."""
+    if cfg.family not in tf.EXPLICIT_FAMILIES:
         raise NotImplementedError(
-            f"decode plans for family {cfg.family!r} are not ported")
+            f"decode plans serve the explicit step, which covers the "
+            f"dense, MoE and hybrid families; {cfg.family!r} stays on auto")
     buckets = tuple(buckets) if buckets else slot_buckets(batch_local)
     rows = seq_bucket_rows(batch_local, buckets, seq_buckets)
     plans = {"layer_allreduce": comm.plan_for(
@@ -317,7 +320,7 @@ def make_prefill_sched_step(cfg: ModelConfig, axis: RankAxis, *, batch: int,
     step, the AllReduce at the ``batch * seq`` row bucket that
     ``compile_decode_plans(seq_buckets=)`` adds (compiled with
     ``seq_buckets=(seq,)`` when ``plans`` is omitted)."""
-    if cfg.family not in tf.DECODE_FAMILIES:
+    if cfg.family not in tf.PREFILL_FAMILIES:
         raise ValueError(
             f"fused prefill covers the dense, MoE and hybrid families; "
             f"{cfg.family!r} prefills token by token through the decode "
@@ -341,12 +344,25 @@ def make_prefill_sched_step(cfg: ModelConfig, axis: RankAxis, *, batch: int,
     return step, layout
 
 
+#: where a cache leaf holds its batch rows, counted from its last axis
+#: (a leading rank or groups axis or not): the SSM state ``(…, b,
+#: d_inner, state)`` and the rwkv6 token shifts ``(…, b, d)``; every
+#: other leaf (K/V, their int8 scales, rwkv6's ``wkv (…, b, nh, 64,
+#: 64)``) at −4
+_BATCH_FROM_END = {"ssm": 3, "shift_t": 2, "shift_c": 2}
+
+
+def batch_axis(name: str, leaf: torch.Tensor) -> int:
+    """The batch axis of the cache leaf ``leaf`` of kind ``name``."""
+    return leaf.dim() - _BATCH_FROM_END.get(name, 4)
+
+
 def cache_rows(cache: dict, b: int) -> dict:
-    """Views of the first ``b`` batch rows of every cache leaf (axis −4
-    of the KV leaves and their scales, −3 of the SSM state), for a step
-    at slot bucket ``b``; the step writes them in place."""
-    return {name: [leaf.narrow(leaf.dim() - (3 if name == "ssm" else 4),
-                               0, b) for leaf in leaves]
+    """Views of the first ``b`` batch rows of every cache leaf
+    (:func:`batch_axis`), for a step at slot bucket ``b``; the step
+    writes them in place."""
+    return {name: [leaf.narrow(batch_axis(name, leaf), 0, b)
+                   for leaf in leaves]
             for name, leaves in cache.items()}
 
 

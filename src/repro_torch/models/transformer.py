@@ -1,15 +1,16 @@
 """The LM behind one functional interface (port of
-``repro.models.transformer``) for the dense, MoE, hybrid (attention+SSM)
-and encoder families: seeded init, the full-sequence forward
+``repro.models.transformer``) for the dense, MoE, hybrid (attention+SSM),
+rwkv6 and encoder families: seeded init, the full-sequence forward
 (``forward``, whose attention core is the flash-attention kernel on the
 card; ``remat_policy`` recomputes a group's layers in the backward), the
 training loss (``loss_fn``, on the plain attention core that autograd
-differentiates) and, for dense, MoE and hybrid, the decode cache, the
-one-token decode step (a position shared by the batch or one a row) and
-the cache-filling fused prefill step — unsharded (auto) or on
-rank-stacked TP shards with the per-layer collectives replayed through
-compiled plans (explicit; for MoE the same axis carries expert
-parallelism, for hybrid the SSM branch is sharded on its inner dim).
+differentiates) and, for dense, MoE, hybrid and rwkv6, the decode cache
+and the one-token decode step (a position shared by the batch or one a
+row); for dense, MoE and hybrid also the cache-filling fused prefill
+step — unsharded (auto) or on rank-stacked TP shards with the per-layer
+collectives replayed through compiled plans (explicit; for MoE the same
+axis carries expert parallelism, for hybrid the SSM branch is sharded on
+its inner dim).
 
 Parameter layout is the reference's: ``params["layers"]`` is a list
 (length = period) of per-slot layer dicts whose leaves carry a leading
@@ -18,8 +19,10 @@ layout (``distributed.sharding.explicit_decode_params``) puts a rank
 axis in front of every leaf: ``wq`` ``(groups, d, nh, hd)`` becomes
 ``(tp, groups, d, nh/tp, hd)``. The encoder family (hubert) has a
 forward and no decode, as in the reference's launcher: ``init_cache``
-and ``decode_step`` raise for it. The rwkv6 family raises
-``NotImplementedError`` everywhere.
+and ``decode_step`` raise for it. The rwkv6 family (``models/rwkv6.py``)
+runs in auto mode only, as in the reference: its layers hold 21 leaves
+of their own (no ``attn``), its cache is recurrent state alone, and the
+explicit decode step and fused prefill raise for it.
 """
 from __future__ import annotations
 
@@ -29,16 +32,18 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.mesh import DeviceLike, resolve_device
-from repro_torch.models import blocks, ssm
+from repro_torch.models import blocks, rwkv6, ssm
 from repro_torch.models.blocks import rms_norm
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["init_params", "init_cache", "decode_step", "prefill_step",
            "forward", "loss_fn", "embed_tokens", "logits_fn",
-           "layer_windows", "n_groups", "REMAT_POLICIES"]
+           "layer_windows", "n_groups", "position_limit", "REMAT_POLICIES"]
 
-FAMILIES = ("dense", "moe", "hybrid", "encoder")
-DECODE_FAMILIES = ("dense", "moe", "hybrid")
+FAMILIES = ("dense", "moe", "hybrid", "rwkv6", "encoder")
+DECODE_FAMILIES = ("dense", "moe", "hybrid", "rwkv6")
+#: the families with a fused prefill step and an explicit decode step
+PREFILL_FAMILIES = EXPLICIT_FAMILIES = ("dense", "moe", "hybrid")
 
 
 def _check_family(cfg: ModelConfig, families=FAMILIES) -> None:
@@ -62,6 +67,16 @@ def n_groups(cfg: ModelConfig) -> int:
     return cfg.n_layers // per
 
 
+def position_limit(cfg: ModelConfig, max_kv: int) -> int:
+    """The first position a decode step may not present: ``cfg.max_seq``
+    (the model's context, RoPE's table) or, with a global attention
+    layer, its cache length ``max_kv`` if smaller (a windowed layer's
+    ring wraps). The rwkv6 family keeps no KV, so only ``max_seq``."""
+    if cfg.family != "rwkv6" and None in layer_windows(cfg):
+        return min(cfg.max_seq, max_kv)
+    return cfg.max_seq
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 *, device: DeviceLike = None, seed: int = 0) -> dict:
     """Seeded random weights on ``device`` (default: the CUDA card).
@@ -73,25 +88,13 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     gen = generator
     if gen is None:
         gen = torch.Generator(device=device).manual_seed(seed)
-    groups = n_groups(cfg)
     d, dt = cfg.d_model, cfg.tdtype
-    lead = (groups,)
-    slots = []
-    for _ in layer_windows(cfg):
-        slot = {
-            "ln_attn": torch.zeros(lead + (d,), dtype=dt, device=device),
-            "ln_mlp": torch.zeros(lead + (d,), dtype=dt, device=device),
-            "attn": blocks.init_attn(gen, cfg, lead=lead, device=device),
-        }
-        if cfg.family == "moe":
-            slot["moe"] = blocks.init_moe(gen, cfg, lead=lead, device=device)
-        else:
-            slot["mlp"] = blocks.init_mlp(gen, cfg, lead=lead, device=device)
-        if cfg.family == "hybrid":
-            # parallel SSM heads beside attention (Hymba); outputs averaged
-            slot["ssm"] = ssm.init_ssm_head(gen, cfg, d, lead=lead,
-                                            device=device)
-        slots.append(slot)
+    lead = (n_groups(cfg),)
+    if cfg.family == "rwkv6":
+        slots = [rwkv6.init_rwkv_layer(gen, cfg, lead=lead, device=device)]
+    else:
+        slots = [_init_slot(gen, cfg, lead, device)
+                 for _ in layer_windows(cfg)]
     params = {
         "embed": blocks.init_linear(gen, (cfg.vocab, d), dt, scale=1.0,
                                     device=device),
@@ -102,6 +105,25 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         params["unembed"] = blocks.init_linear(gen, (d, cfg.vocab), dt,
                                                device=device)
     return params
+
+
+def _init_slot(gen, cfg: ModelConfig, lead, device) -> dict:
+    """One period slot's layer params of an attention family."""
+    d, dt = cfg.d_model, cfg.tdtype
+    slot = {
+        "ln_attn": torch.zeros(lead + (d,), dtype=dt, device=device),
+        "ln_mlp": torch.zeros(lead + (d,), dtype=dt, device=device),
+        "attn": blocks.init_attn(gen, cfg, lead=lead, device=device),
+    }
+    if cfg.family == "moe":
+        slot["moe"] = blocks.init_moe(gen, cfg, lead=lead, device=device)
+    else:
+        slot["mlp"] = blocks.init_mlp(gen, cfg, lead=lead, device=device)
+    if cfg.family == "hybrid":
+        # parallel SSM heads beside attention (Hymba); outputs averaged
+        slot["ssm"] = ssm.init_ssm_head(gen, cfg, d, lead=lead,
+                                        device=device)
+    return slot
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_kv: int, *,
@@ -121,9 +143,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_kv: int, *,
     d_model, state)`` a slot. Under ``ranks`` it is rank-sharded on its
     inner dim, ``(ranks, groups, b, d_model / ranks, state)``: each
     rank updates only its rows (the reference's
-    ``explicit_decode_cache_pspecs``)."""
+    ``explicit_decode_cache_pspecs``).
+
+    The rwkv6 family's cache is its recurrent state alone, in f32, each
+    leaf with a leading groups axis, one slot a name: ``{"wkv":
+    [(groups, b, nh, 64, 64)], "shift_t": [(groups, b, d)], "shift_c":
+    [(groups, b, d)]}``. ``max_kv`` and ``dtype`` do not apply to it (an
+    int8 cache leaves it in f32, as in the reference), and it has no
+    explicit layout (``ranks``)."""
     _check_family(cfg, DECODE_FAMILIES)
     device = resolve_device(device)
+    if cfg.family == "rwkv6":
+        if ranks:
+            raise NotImplementedError(
+                "the rwkv6 family has no explicit (rank-stacked) cache: it "
+                "stays on auto")
+        state = rwkv6.init_rwkv_state(cfg, batch, device=device)
+        return {name: [leaf.new_zeros((n_groups(cfg),) + tuple(leaf.shape))]
+                for name, leaf in state.items()}
     dtype = dtype or cfg.tdtype
     _, nkv = blocks.padded_heads(cfg)
     lead = (ranks,) if ranks else ()
@@ -148,6 +185,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_kv: int, *,
 
 
 def _run_layer(p, x, cfg: ModelConfig, win, cos, sin, backend):
+    if cfg.family == "rwkv6":
+        # a fresh state a call; the channel mix gets the state the time
+        # mix returns
+        state = rwkv6.init_rwkv_state(cfg, x.shape[0], device=x.device)
+        return rwkv6.rwkv_decode_step(p, x, state, cfg)[0]
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
     att = blocks.attention(p["attn"], h, cfg, cos, sin, window=win,
                            backend=backend)
@@ -194,10 +236,12 @@ def forward(params, cfg: ModelConfig, tokens, *,
     if s > cfg.max_seq:
         raise ValueError(f"forward(): {s} positions > max_pos {cfg.max_seq}")
     # positions made on the device and read there: a host tensor's copy
-    # would wait for the stream, once a forward
-    cos, sin = blocks.rope(torch.arange(s, device=x.device), cfg.hd,
-                           cfg.rope_theta, x.device, max_pos=s,
-                           on_device=True)
+    # would wait for the stream, once a forward; rwkv6 has no positions
+    cos = sin = None
+    if cfg.family != "rwkv6":
+        cos, sin = blocks.rope(torch.arange(s, device=x.device), cfg.hd,
+                               cfg.rope_theta, x.device, max_pos=s,
+                               on_device=True)
     wins = layer_windows(cfg)
     slots = [_per_group(params["layers"][i]) for i in range(len(wins))]
 
@@ -322,12 +366,42 @@ def _write_back(writes) -> None:
         state.copy_(new)
 
 
-def _check_explicit_moe(cfg: ModelConfig, comms) -> None:
-    if comms is not None and cfg.family == "moe" and comms.moe_plan is None:
+def _check_explicit(cfg: ModelConfig, comms) -> None:
+    if comms is None:
+        return
+    if cfg.family not in EXPLICIT_FAMILIES:
+        raise NotImplementedError(
+            "explicit decode covers the dense, hybrid (attention+SSM) and "
+            "MoE families — fp and int8 KV caches alike; rwkv6 and encoder "
+            "configs stay on auto")
+    if cfg.family == "moe" and comms.moe_plan is None:
         raise NotImplementedError(
             "explicit MoE decode needs a compiled 'moe_alltoall' plan "
             "(experts divisible by the TP axis); without one the family "
             "stays on auto")
+
+
+def _rwkv_decode(params, cfg: ModelConfig, cache, tokens, active):
+    """The rwkv6 family's decode step (auto): each group's layer from its
+    recurrent state; an inactive row's state passes through bit for bit;
+    the new state is written back after the logits."""
+    x = params["embed"][tokens][:, None]                  # (b, 1, d)
+    layers = params["layers"][0]
+    writes = []
+    for g in range(n_groups(cfg)):
+        state = {name: cache[name][0][g] for name in rwkv6.STATE_NAMES}
+        x, new = rwkv6.rwkv_decode_step(_group(layers, g, False), x, state,
+                                        cfg)
+        for name, old in state.items():
+            upd = new[name]
+            if active is not None:
+                keep = active.reshape((-1,) + (1,) * (old.dim() - 1))
+                upd = torch.where(keep, upd, old)
+            writes.append((old, upd))
+    h = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = logits_fn(params, cfg, h)[:, 0]
+    _write_back(writes)
+    return logits, cache
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, comms=None,
@@ -346,6 +420,12 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, comms=None,
     state) is updated in place and returned for the reference's calling
     convention. The SSM state is written last, after the logits gather,
     so a step that raises part-way can be re-run from where it started.
+
+    The rwkv6 family is position-free: ``pos`` is not read (no cache
+    length to check), each layer runs ``rwkv6.rwkv_decode_step`` on its
+    recurrent state, which an ``active`` mask passes through for an
+    inactive row and which is written back after the logits, as the SSM
+    state is. It has no explicit step.
 
     ``comms`` — the explicit-TP hook (``distributed.step.TPDecodeComms``):
     params and cache arrive rank-stacked, the per-layer hidden-state
@@ -366,7 +446,9 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos, *, comms=None,
     ``comms=None`` is the auto path.
     """
     _check_family(cfg, DECODE_FAMILIES)
-    _check_explicit_moe(cfg, comms)
+    _check_explicit(cfg, comms)
+    if cfg.family == "rwkv6":
+        return _rwkv_decode(params, cfg, cache, tokens, active)
     if not isinstance(pos, torch.Tensor):
         wins = layer_windows(cfg)
         limit = min([cfg.max_seq] + [c.shape[-2] for c, w
@@ -416,11 +498,12 @@ def prefill_step(params, cfg: ModelConfig, cache, tokens, pos, n_tok, *,
     row needs ``n_tok == 1`` or ``pos + n_tok <= kv_len``
     (:func:`blocks.prefill_attention`). The rwkv6 and encoder families
     have no fused prefill."""
-    if cfg.family not in DECODE_FAMILIES:
+    if cfg.family not in PREFILL_FAMILIES:
         raise NotImplementedError(
             f"fused prefill covers the dense, MoE and hybrid families; "
-            f"{cfg.family!r} has none")
-    _check_explicit_moe(cfg, comms)
+            f"{cfg.family!r} has none (rwkv6 prefills token by token "
+            f"through the decode step)")
+    _check_explicit(cfg, comms)
     b, S = tokens.shape
     if comms is not None:
         x = comms.embed(params["embed"], tokens.reshape(-1)).unflatten(

@@ -80,7 +80,7 @@ from repro_torch.distributed.step import (CaptureError, capture_serve_step,
 from repro_torch.kernels.build import KernelBuildError, KernelLaunchError
 from repro_torch.mesh import DeviceLike, RankAxis
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import layer_windows
+from repro_torch.models.transformer import position_limit
 from repro_torch.serve import sampling
 
 __all__ = ["ServeConfig", "Engine", "StepHungError", "unrecoverable"]
@@ -285,7 +285,8 @@ class Engine:
         self.pos = 0
         self.active = np.zeros(serve_cfg.batch, bool)
         self._pos = torch.zeros((), dtype=torch.long, device=self.device)
-        self._global_layers = None in layer_windows(cfg)
+        #: the graph cannot bounds-check its position: the host does
+        self._pos_limit = position_limit(cfg, serve_cfg.max_kv)
         self.graph = None
         self._step = self._eager
         #: a weak reference to the Scheduler serving from ``cache``
@@ -423,10 +424,9 @@ class Engine:
             raise RuntimeError(
                 "a Scheduler serves from this engine's cache: step the "
                 "scheduler, not the engine")
-        # the graph cannot bounds-check its position: the host does (a
-        # global layer's cache ends at max_kv, a windowed one wraps)
-        if self.pos >= self.cfg.max_seq or (
-                self._global_layers and self.pos >= self.scfg.max_kv):
+        # a global layer's cache ends at max_kv, a windowed one wraps,
+        # rwkv6 has none
+        if self.pos >= self._pos_limit:
             raise ValueError(
                 f"position {self.pos} is past the model (max_seq="
                 f"{self.cfg.max_seq}) or a global layer's cache (max_kv="

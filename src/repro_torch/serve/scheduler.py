@@ -141,12 +141,6 @@ def _pct(sorted_vals: List[float], q: float) -> float:
     return sorted_vals[i]
 
 
-def _batch_axis(name: str, leaf: torch.Tensor) -> int:
-    """The batch axis of a cache leaf: −4 of the KV leaves and their
-    scales, −3 of the SSM state (a leading rank axis or not)."""
-    return leaf.dim() - (3 if name == "ssm" else 4)
-
-
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     """A cache segment for the prefix cache: bf16 as its uint16 bits."""
     if t.dtype == torch.bfloat16:
@@ -240,16 +234,14 @@ class Scheduler:
             raise ValueError("queue_limit must be >= 1 or None")
         self.queue_limit = queue_limit
         self._rejected = 0
-        wins = tf.layer_windows(cfg)
         kv_lens = [min(w, scfg.max_kv) if w is not None else scfg.max_kv
-                   for w in wins]
+                   for w in tf.layer_windows(cfg)]
         self._min_kv = min(kv_lens)
         #: positions a row may present: RoPE covers max_seq, a global
-        #: layer's cache max_kv (a windowed one wraps)
-        self._pos_limit = (min(cfg.max_seq, scfg.max_kv) if None in wins
-                           else cfg.max_seq)
+        #: layer's cache max_kv (a windowed one wraps; rwkv6 has none)
+        self._pos_limit = tf.position_limit(cfg, scfg.max_kv)
         self.fused_prefill = (bool(fused_prefill)
-                              and cfg.family in tf.DECODE_FAMILIES)
+                              and cfg.family in tf.PREFILL_FAMILIES)
         ladder = (scfg.prefill_seq_buckets
                   or step_mod.slot_buckets(self.prefill_chunk))
         self._seq_buckets = tuple(sorted(
@@ -274,8 +266,10 @@ class Scheduler:
         self._shared_prefill_plans = scfg.prefill_seq_buckets is not None
         self._prefill_steps: Dict[tuple, object] = {}
         self._prefill_bucket_steps: Dict[tuple, int] = {}
-        self.prefix_cache = (prefix_cache if "ssm" not in self.cache
-                             else None)
+        # recurrent state (SSM, rwkv6) is a running reduction, not a
+        # per-token tape: only pure attention caches are prefix-sliceable
+        self.prefix_cache = (prefix_cache if "k" in self.cache
+                             and "ssm" not in self.cache else None)
         self._prefix = {"hits": 0, "misses": 0, "tokens_reused": 0,
                         "inserts": 0}
         self.graphs: Dict[int, step_mod.CapturedSchedStep] = {}
@@ -573,8 +567,8 @@ class Scheduler:
         for name, leaves in self.cache.items():
             if kinds is None or name in kinds:
                 for j, leaf in enumerate(leaves):
-                    yield name, j, leaf, leaf.select(_batch_axis(name, leaf),
-                                                     i)
+                    yield name, j, leaf, leaf.select(
+                        step_mod.batch_axis(name, leaf), i)
 
     def _seed_prefix(self, slot: _Slot, i: int) -> None:
         """Seed a freshly admitted slot's cache row with the longest
@@ -654,7 +648,7 @@ class Scheduler:
             # in place (a permutation of rows, so every stream is
             # unaffected)
             for name, _, leaf, row in self._rows(i):
-                row.copy_(leaf.select(_batch_axis(name, leaf), last))
+                row.copy_(leaf.select(step_mod.batch_axis(name, leaf), last))
             self._slots[i] = self._slots[last]
         self._slots.pop()
 

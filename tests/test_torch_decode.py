@@ -21,6 +21,7 @@ from repro_torch import configs
 from repro_torch.core import selector
 from repro_torch.core.comm import BucketedPlan, Communicator
 from repro_torch.core.executor import CudaExecutor
+from repro_torch.distributed.step import compile_decode_plans
 from repro_torch.interop import params_from_jax
 from repro_torch.models import transformer as tf
 from repro_torch.serve.engine import Engine, ServeConfig
@@ -158,9 +159,19 @@ def test_explicit_replays_not_recompiles():
 
 
 def test_unported_family_raises():
+    """rwkv6 has no explicit decode, as in the reference: the step with
+    ``comms`` and the decode plans raise (its auto path is
+    tests/test_torch_rwkv6.py's)."""
     cfg = configs.reduced(configs.get_config("rwkv6-7b"))
-    with pytest.raises(NotImplementedError):
-        tf.init_params(cfg, device="cpu")
+    params = tf.init_params(cfg, device="cpu")
+    cache = tf.init_cache(cfg, BATCH, MAX_KV, device="cpu")
+    with pytest.raises(NotImplementedError, match="explicit decode"):
+        tf.decode_step(params, cfg, cache, torch.zeros(BATCH,
+                                                       dtype=torch.long),
+                       0, comms=object())
+    comm = Communicator("model", n=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="stays on auto"):
+        compile_decode_plans(cfg, comm, batch_local=BATCH, tp=2)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma3-12b"])

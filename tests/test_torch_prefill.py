@@ -169,9 +169,18 @@ def test_encoder_runs_forward_and_refuses_decode():
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b"])
 def test_unported_families_refuse_forward(arch):
+    """rwkv6 has a forward but no fused prefill, as in the reference: it
+    prefills token by token through the decode step, and
+    ``prefill_step`` raises."""
     cfg = configs.reduced(configs.get_config(arch))
-    with pytest.raises(NotImplementedError):
-        tf.forward({}, cfg, torch.zeros(B, S, dtype=torch.long))
+    params = tf.init_params(cfg, device="cpu")
+    tokens = torch.zeros(B, S, dtype=torch.long)
+    assert tf.forward(params, cfg, tokens).shape == (B, S, cfg.d_model)
+    cache = tf.init_cache(cfg, B, S, device="cpu")
+    with pytest.raises(NotImplementedError, match="token by token"):
+        tf.prefill_step(params, cfg, cache, tokens,
+                        torch.zeros(B, dtype=torch.long),
+                        torch.full((B,), S, dtype=torch.long))
 
 
 @pytest.mark.parametrize("q_len,kv_len,causal,window,q_offset", [

@@ -1,8 +1,8 @@
 """The port's training loss and its gradients against the reference's:
 ``transformer.loss_fn`` and every gradient leaf within f32 1e-5 of
 ``jax.value_and_grad`` of the reference's ``loss_fn``, on every reduced
-arch but rwkv6 (the reference's weights carried across with
-``params_from_jax``); the padded heads' ``wo`` gradient exactly 0;
+arch (the reference's weights carried across with ``params_from_jax``);
+the padded heads' ``wo`` gradient exactly 0;
 ``remat_policy="full"`` bit-equal to ``"none"``; the SSM scan under
 autograd bit-equal to the in-place one. And the guards the trainer's
 path needs: the flash-attention kernel refuses inputs that need a
@@ -38,7 +38,7 @@ RTOL = ATOL = 1e-5
 # windowed and one global layer (window 4 < S), so its compile stays short
 OVERRIDES = {"gemma3-12b": dict(local_global_period=2, n_layers=2, window=4),
              "hymba-1.5b": dict(window=4)}
-ARCHS = [a for a in configs._MODULES if a != "rwkv6-7b"]
+ARCHS = list(configs._MODULES)
 
 
 def _cfgs(arch, **extra):
@@ -121,13 +121,6 @@ def test_remat_full_bit_equal_none(arch):
     with pytest.raises(ValueError, match="remat_policy"):
         tf.forward(params, cfg, torch.zeros((1, 4), dtype=torch.int32),
                    remat_policy="dots")
-
-
-def test_rwkv6_has_no_loss():
-    cfg = configs.reduced(configs.get_config("rwkv6-7b"))
-    with pytest.raises(NotImplementedError):
-        tf.loss_fn({}, cfg, dict(tokens=torch.zeros((1, 4), dtype=torch.int32),
-                                 labels=torch.zeros((1, 4), dtype=torch.int32)))
 
 
 def test_scan_under_autograd_equals_in_place():
