@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases 1,2,15 # build, then faults and guardrails
     python3 chip_smoke.py --phases 1,2,16 # build, then the trainer
     python3 chip_smoke.py --phases 1,2,17 # build, then rwkv6-7b
+    python3 chip_smoke.py --phases 1,2,18 # build, then FSDP and the dry run
 
 Phases, each printing one JSON line (any failure raises, exit != 0):
 
@@ -335,7 +336,8 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    run's (a compaction that moves no state parting from them), and the
    same weights in bf16 within 0.05 of them; (c) at 4 layers, explicit
    asked for at TP=4: the warning "falling back to auto", the engine in
-   auto with one fallback counted (as the reference's), tokens and
+   auto with one fallback counted and its decode plans compiled, never
+   replayed (as the reference's), tokens and
    first-step logits equal to an auto engine's (the one engine that ends
    in another mode than asked, on purpose); (d) the ``Scheduler`` over
    the full model, 8 slots, 8 requests (Poisson 4/s, prompts of 16 to
@@ -356,6 +358,35 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    library kernel, step 0's reduction bit-equal to the same plans on
    ``TorchExecutor``; ms a step by part and clock, tokens/s and the
    peak memory of each mode.
+18. FSDP and the dry run. (a) The explicit FSDP trainer
+   (``distributed/fsdp.py``) at full width: qwen3-1.7b, 28 layers, bf16,
+   phase 16's fixed 8 x 256 batch, 4 AdamW steps on DP 8 (28 groups do
+   not divide, so every large leaf's ``d_model`` is sharded: all-gathers
+   and reduce-scatters) and on DP 4 (each rank owns 7 whole groups:
+   broadcasts and all-reduces), beside auto's 4 steps. Gates: losses and
+   grad norms within phase 16's bars of auto's (0.02, 2 %); every
+   gathered group (each rank's copy) and the gathered embedding
+   bit-equal to the unsharded leaves; every plan call of step 0 bit-equal
+   to the same plan on ``TorchExecutor``; the executor's launches a step
+   (counted from 0 just before the steps) equal to
+   ``FsdpLayout.predicted_launches``; no library kernel. The step's ms by
+   part, each by its clock (the wall; the gathers', reductions' and
+   AdamW's device ms by CUDA events; the rank passes as the wall's
+   residual), the device-busy ms of one more step under
+   ``torch.profiler``, and the peak memory beside phase 16's DP 4. (b)
+   The dry run held against the card, on phase 4's explicit decode step
+   (TP 4, batch 8, at position 1023) and on (a)'s DP 8 step: the dry run
+   (``roofline/op_stats.py`` on fake tensors, traced in this process on
+   the CPU after the card's runs, about a minute and a half) traces the
+   same step, every rank stacked as the card runs them; its peak's
+   growth over the step's inputs against
+   ``torch.cuda.max_memory_allocated``'s (within 1 %), its FLOPs beside
+   ``model_flops``, and the larger of its compute and memory terms at
+   the H100's datasheet rates over the measured device ms (the decode
+   step's CUDA graph replay, behind a device sleep that must cover the
+   enqueue; the train step's summed kernel time under the profiler),
+   which must read at most 1.05 (one card has no NVLink: no collective
+   term).
 
 The last lines are the card's nvidia-smi line, one ``{"kernels": [...]}``
 JSON object, and ``{"ok": true, "device": {...}}``. The whole record,
@@ -385,6 +416,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -397,7 +429,10 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+# the H100's datasheet rates (dense bf16 peak, device memory), one source
+# for every phase's bound and the dry run's roofline
+from repro_torch.roofline.analysis import (  # noqa: E402
+    BF16_FLOPS_PER_S, HBM_BYTES_PER_S)
 ARCH = "qwen3-1.7b"
 TP = 4
 BATCH, PROMPT, DECODE = 8, 16, 32
@@ -466,7 +501,6 @@ A2A_REPLACES = "src/repro/kernels/alltoall.py:26"
 # phase 10: full-sequence prefill through the flash-attention kernel
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:37"
-BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 # kernel vs plain version: the reference test's tolerances (atol = rtol)
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # and a scale-free one, ||got - want|| / ||want||, at every case and on
@@ -651,6 +685,20 @@ RWKV_TRAIN_MODES = ("auto", "flat4")
 # gradient leaves: 21 a layer, embed, ln_f, unembed
 RWKV_LEAVES = 24
 RWKV_TRAIN_PATH = f"{RWKV_ARCH} train"
+# phase 18: the FSDP trainer (qwen3-1.7b at full width and depth, phase
+# 16's fixed 8 x 256 batch, 4 AdamW steps) on DP 8, whose 28 groups do not
+# divide so each leaf's d_model is sharded, and DP 4, where each rank owns
+# 7 whole groups; the dry run held against the card on phase 4's explicit
+# decode step and on the DP 8 step
+FSDP_DP = (8, 4)
+FSDP_STEPS = 4
+FSDP_PATH = "fsdp train"
+# a roofline time over the measured time past this is a wrong count
+DRYRUN_SHARE_MAX = 1.05
+# the dry run's peak growth over a step's inputs against the card's
+# (torch.cuda.max_memory_allocated): the card adds the caching
+# allocator's rounding and the plans' flag words
+DRYRUN_PEAK_REL_TOL = 0.01
 
 RECORD: dict = {}
 
@@ -6217,9 +6265,13 @@ def _rwkv_f32(device, prompts):
     said = [str(w.message) for w in caught]
     check(any("falling back to auto" in m for m in said),
           f"{RWKV_ARCH} explicit: no fallback warning in {said}")
+    # its decode plans compile, as the reference's do; nothing replays them
     check(ex.mode == "auto" and ex.requested_mode == "explicit"
-          and ex.health["fallbacks"] == 1 and not ex.decode_plans,
-          f"{RWKV_ARCH} explicit: mode {ex.mode}, health {ex.health}")
+          and ex.health["fallbacks"] == 1
+          and set(ex.decode_plans) == {"layer_allreduce",
+                                       "logits_allgather"},
+          f"{RWKV_ARCH} explicit: mode {ex.mode}, health {ex.health}, "
+          f"plans {sorted(ex.decode_plans)}")
     ex.capture()
     got_ex = _serve(ex, prompts, DECODE)
     del ex
@@ -6529,12 +6581,396 @@ def phase_rwkv6(device):
     return train_path
 
 
+# ---------------------------------------------------------------------------
+# phase 18: FSDP in the trainer, and the dry run held against the card
+# ---------------------------------------------------------------------------
+def _fsdp_instrument(fs, plain):
+    """Wrap the FSDP step's four collectives (``fs.comms``): CUDA events
+    around each call, by part (``gather``: all-gather and broadcast;
+    ``reduce``: reduce-scatter and all-reduce), and the bytes it must
+    move: its payload read once and its output written once, every
+    rank's, except a broadcast's payload, of which only the root's slot
+    is read. While ``rec["check"]`` is set each call also runs on
+    ``plain`` (the same axes' plans on ``TorchExecutor``), bit-equal
+    (``max_abs_err`` stays 0) or recorded in ``unequal`` with its largest
+    ``|out - want|`` in ``max_abs_err``, and on its one-call PyTorch
+    counterpart, each timed."""
+    rec = dict(check=False, calls=[], unequal=[], checked=0,
+               max_abs_err=0.0)
+    library = {
+        "all_gather": lambda x: x.reshape(1, -1, x.shape[-1]).expand(
+            x.shape[0], -1, -1).contiguous(),
+        "broadcast": lambda x, root: x[root:root + 1].expand_as(x)
+        .contiguous(),
+        "reduce_scatter": lambda x: x.sum(0).reshape(
+            x.shape[0], x.shape[1] // x.shape[0], x.shape[2]),
+        "all_reduce": lambda x: x.sum(0, keepdim=True).expand_as(x)
+        .contiguous()}
+
+    def timed(fn, *a):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(*a)
+        e1.record()
+        return out, (e0, e1)
+
+    for name, part in (("all_gather", "gather"), ("broadcast", "gather"),
+                       ("reduce_scatter", "reduce"),
+                       ("all_reduce", "reduce")):
+        def call(x, *a, _fn=getattr(fs.comms, name),
+                 _plain=getattr(plain, name), _lib=library[name],
+                 _name=name, _part=part):
+            out, ev = timed(_fn, x, *a)
+            read = x[0].numel() if _name == "broadcast" else x.numel()
+            c = dict(part=_part, ev=ev, bytes=(read + out.numel())
+                     * x.element_size())
+            if rec["check"]:
+                want, c["plain_ev"] = timed(_plain, x, *a)
+                lib, c["lib_ev"] = timed(_lib, x.contiguous(), *a)
+                rec["checked"] += 1
+                if not torch.equal(out, want):
+                    rec["unequal"].append(_name)
+                    # a rank's slot at a time: a gathered embedding is
+                    # gigabytes, and the card is nearly full here
+                    rec["max_abs_err"] = max([rec["max_abs_err"]] + [
+                        float((o.float() - w.float()).abs().max())
+                        for o, w in zip(out, want)])
+                del want, lib
+            rec["calls"].append(c)
+            return out
+        setattr(fs.comms, name, call)
+    return rec
+
+
+def _fsdp_gathers_exact(fs, params, held) -> dict:
+    """Every group's gathered leaves (each rank's copy) and the gathered
+    embedding and logits' weight, against the unsharded leaves: bit-equal
+    or named."""
+    from repro_torch.distributed import fsdp
+    lay = fs.layout
+    bad = []
+    with torch.no_grad():
+        for g in range(lay.groups):
+            slots = fs.gather_group(held, g)
+            for i, path, d in lay.group_leaves():
+                if d is None:
+                    continue
+                got = fsdp._get(slots[i], path)
+                want = fsdp._get(params["layers"][i], path)[g]
+                if not all(torch.equal(got[r], want)
+                           for r in range(got.shape[0])):
+                    bad.append(f"{g}/{i}/{'/'.join(path)}")
+            del slots
+        for name in ("embed", "unembed"):
+            if lay.dims.get(name) is None:
+                continue
+            got = fs.gather_root(held, name)
+            if not all(torch.equal(got[r], params[name])
+                       for r in range(got.shape[0])):
+                bad.append(name)
+            del got
+    return dict(groups=lay.groups, leaves_sharded=sum(
+        d is not None for _, _, d in lay.group_leaves()), unequal=bad)
+
+
+def _fsdp_run(cfg, ndp, device):
+    """FSDP_STEPS steps of the explicit FSDP trainer on DP ``ndp`` (module
+    docstring, phase 18 (a)); the executor's launches counted from 0 just
+    before the steps and read after each. Then one more step under
+    ``torch.profiler`` (device activity only) for its device-busy ms,
+    outside the counts and the peak."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.executor import CudaExecutor
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import step as st
+    from repro_torch.kernels import comm_utils
+    from repro_torch.mesh import RankAxis
+    from repro_torch.train import optimizer as opt
+    _free()
+    axes = (RankAxis("data", ndp, device),)
+    step = st.make_train_step(cfg, axes, _train_opt(FSDP_STEPS),
+                              mode="explicit", global_batch=TRAIN_BATCH,
+                              seq_len=TRAIN_SEQ, fsdp=True, device=device)
+    fs, lay = step.fsdp, step.fsdp.layout
+    params, _ = st.init_sharded(cfg, device=device)
+    held = step.shard(params)
+    exact = _fsdp_gathers_exact(fs, params, held)
+    del params
+    _free()
+    state = opt.adamw_init(held)
+    rec = _fsdp_instrument(fs, fsdp.FsdpComms(
+        st.make_dp_communicators(axes, backend="torch")))
+    batch = _train_batch(cfg)
+    predicted = lay.predicted_launches(backward=True)
+    CudaExecutor.launches = 0                   # just before the steps
+    comm_utils.LAUNCHES.clear()
+    losses, norms, launches, parts = [], [], [], []
+    for i in range(FSDP_STEPS):
+        rec.update(check=i == 0, calls=[])
+        n0 = CudaExecutor.launches
+        torch.cuda.synchronize()
+        if i == 1:
+            # the peak over the unchecked steps (step 0 binds every plan
+            # and runs each twice more, on TorchExecutor and in one call)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+        t = time.perf_counter()
+        loss, grads = step.grads(held, batch)
+        a0 = torch.cuda.Event(enable_timing=True)
+        a1 = torch.cuda.Event(enable_timing=True)
+        a0.record()
+        held, state, m = opt.adamw_update(step.opt_cfg, held, grads, state,
+                                          donate=True)
+        a1.record()
+        del grads
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        launches.append(CudaExecutor.launches - n0)
+        dev = {p: sum(c["ev"][0].elapsed_time(c["ev"][1])
+                      for c in rec["calls"] if c["part"] == p)
+               for p in ("gather", "reduce")}
+        part = dict(step_ms_wall=wall, gathers_ms_device=dev["gather"],
+                    reductions_ms_device=dev["reduce"],
+                    adamw_ms_device=a0.elapsed_time(a1))
+        # the rank passes: the step's wall less its timed parts (they
+        # interleave with the gathers group by group)
+        part["rank_passes_ms_wall_residual"] = wall - sum(
+            v for k, v in part.items() if k != "step_ms_wall")
+        if i == 0:
+            calls = rec["calls"]
+            part["check_calls"] = len(calls)
+            step0 = dict(
+                launches=len(calls),
+                ms=sum(c["ev"][0].elapsed_time(c["ev"][1]) for c in calls),
+                plain_ms=sum(c["plain_ev"][0].elapsed_time(c["plain_ev"][1])
+                             for c in calls),
+                library_ms=sum(c["lib_ev"][0].elapsed_time(c["lib_ev"][1])
+                               for c in calls),
+                bound_ms=sum(c["bytes"] for c in calls)
+                / HBM_BYTES_PER_S * 1e3)
+        parts.append(part)
+        losses.append(float(loss))
+        norms.append(float(m["grad_norm"]))
+    out = dict(ndp=ndp, kind="groups" if lay.dims["layers"][0]["attn"][
+                   "wq"] == 0 else "inner",
+               losses=losses, grad_norms=norms, launches_per_step=launches,
+               predicted_launches=predicted, launches=CudaExecutor.launches,
+               library_launches=dict(comm_utils.LAUNCHES),
+               plan_checks=rec["checked"], plan_unequal=rec["unequal"],
+               plan_max_abs_err=rec["max_abs_err"],
+               gathers_exact=exact, parts=parts, step0_plans=step0,
+               step_ms_median=float(np.median(
+                   [p["step_ms_wall"] for p in parts[1:]])),
+               peak_growth_gb=(torch.cuda.max_memory_allocated(device)
+                               - base) / 1e9,
+               peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+    rec.update(check=False, calls=[])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        _, grads = step.grads(held, batch)
+        held, state, _ = opt.adamw_update(step.opt_cfg, held, grads, state,
+                                          donate=True)
+        del grads
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy = sum(r[0] for r in _device_rows(prof, 1)) / 1e3
+    out["profiled_step"] = dict(wall_ms=wall, device_busy_ms=busy,
+                                device_busy_share=busy / wall)
+    del step, fs, held, state, rec, prof
+    _free()
+    return out
+
+
+def _dry_counts() -> dict:
+    """The dry run of phase 18 (b)'s two steps on fake tensors (no
+    device): phase 4's explicit decode step (TP 4, batch 8, max_kv 1024,
+    the position at the cache's end) and (a)'s DP 8 FSDP step, every rank
+    traced stacked as the card runs them. Each: FLOPs, traffic, peak and
+    input bytes, plan calls, the trace's seconds."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.mesh import NamedGrid
+    from repro_torch.roofline import op_stats
+    cfg = configs.get_config(ARCH)
+    steps = {
+        "decode": ("decode_32k", dict(global_batch=BATCH, seq_len=MAX_KV,
+                                      kind="decode"), (1, TP)),
+        "train": ("train_4k", dict(global_batch=TRAIN_BATCH,
+                                   seq_len=TRAIN_SEQ, kind="train"),
+                  (FSDP_DP[0], 1))}
+    out = {}
+    for name, (cell, shape, sizes) in steps.items():
+        t = time.perf_counter()
+        _, _, specs, low = dryrun.lower_cell(
+            ARCH, cell, cfg=cfg, grid=NamedGrid(("data", "model"), sizes),
+            shape=shape, one_rank=False)
+        st = op_stats.analyze(lambda s, *a: s(*a), specs["params"],
+                              prepare=low.prepare, recorder=low.recorder)
+        out[name] = dict(flops=st.flops, traffic_bytes=st.traffic_bytes,
+                         peak_bytes=st.peak_bytes, base_bytes=st.base_bytes,
+                         plan_calls=len(st.calls), layout=low.layout,
+                         model_flops=dryrun.model_flops(
+                             cfg, shape["kind"], shape["global_batch"],
+                             shape["seq_len"]),
+                         trace_s=time.perf_counter() - t)
+    return out
+
+
+def _dry_vs_card(dry, growth_bytes, measured_ms) -> dict:
+    """The dry run's counts of a step beside the card's run of it: the
+    peak's growth over the step's inputs, FLOPs over the model's, and the
+    roofline time (compute and memory terms at the H100's rates; one card
+    has no NVLink) over the measured device ms."""
+    from repro_torch.roofline import analysis as roof
+    compute_s = dry["flops"] / roof.H100.peak_flops
+    memory_s = dry["traffic_bytes"] / roof.H100.hbm_bw
+    dry_growth = dry["peak_bytes"] - dry["base_bytes"]
+    return dict(dry_peak_growth_gb=dry_growth / 1e9,
+                card_peak_growth_gb=growth_bytes / 1e9,
+                peak_rel_err=abs(dry_growth - growth_bytes) / growth_bytes,
+                flops=dry["flops"], model_flops=dry["model_flops"],
+                flops_over_model=dry["flops"] / dry["model_flops"],
+                traffic_gb=dry["traffic_bytes"] / 1e9,
+                compute_ms=compute_s * 1e3, memory_ms=memory_s * 1e3,
+                measured_ms=measured_ms,
+                share=max(compute_s, memory_s) * 1e3 / measured_ms,
+                plan_calls=dry["plan_calls"], layout=dry["layout"],
+                trace_s=dry["trace_s"])
+
+
+def _decode_on_card(cfg, device) -> tuple:
+    """Phase 4's explicit decode step on the card at the position the dry
+    run takes: (peak growth over one eager step, device ms a replay of
+    the step's CUDA graph, whether the device sleep covered the
+    enqueue)."""
+    from repro_torch.distributed import step as st
+    from repro_torch.mesh import RankAxis
+    from repro_torch.models import transformer as tf
+    _free()
+    step, lay = st.make_serve_step(cfg, RankAxis("model", TP, device),
+                                   batch=BATCH, max_kv=MAX_KV,
+                                   mode="explicit")
+    params = lay.params(tf.init_params(cfg, device=device))
+    _free()
+    cache = lay.cache()
+    toks = torch.zeros(BATCH, dtype=torch.long, device=device)
+    pos = MAX_KV - 1
+    with torch.inference_mode():
+        step(params, cache, toks, pos)           # binds the plans
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        step(params, cache, toks, pos)
+        torch.cuda.synchronize()
+        growth = torch.cuda.max_memory_allocated(device) - base
+    graph = st.capture_serve_step(step, params, cache, batch=BATCH,
+                                  device=device)
+    graph.pos.fill_(pos)
+    ms, covered = device_ms(graph.graph.replay, 10)
+    del graph, step, params, cache
+    _free()
+    return growth, ms, covered
+
+
+def phase_fsdp(device):
+    """Phase 18: FSDP and the dry run (see the module docstring)."""
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    cfg = configs.get_config(ARCH)
+    sec = {}
+    t = time.perf_counter()
+    auto, _ = _train_run(cfg, "auto", device, steps=FSDP_STEPS,
+                         opt_cfg=_train_opt(FSDP_STEPS))
+    runs = {ndp: _fsdp_run(cfg, ndp, device) for ndp in FSDP_DP}
+    sec["runs"] = time.perf_counter() - t
+    for ndp, r in runs.items():
+        r["gaps"] = _train_gaps(r, auto)
+        label = f"fsdp DP {ndp}"
+        check(bool(np.isfinite(r["losses"]).all()),
+              f"{label}: losses {r['losses']}")
+        check(r["gaps"]["loss"] <= TRAIN_LOSS_BAR
+              and r["gaps"]["grad_norm"] <= TRAIN_GNORM_BAR,
+              f"{label} vs auto: {r['gaps']} past phase 16's bars "
+              f"({TRAIN_LOSS_BAR}, {TRAIN_GNORM_BAR})")
+        check(not r["gathers_exact"]["unequal"],
+              f"{label}: gathered leaves != the unsharded ones: "
+              f"{r['gathers_exact']['unequal'][:8]}")
+        check(r["plan_checks"] == r["launches_per_step"][0]
+              and not r["plan_unequal"],
+              f"{label}: step 0's plans against TorchExecutor's: "
+              f"{r['plan_checks']} checked of {r['launches_per_step'][0]}, "
+              f"unequal {r['plan_unequal'][:8]}")
+        check(r["launches_per_step"] == [r["predicted_launches"]]
+              * FSDP_STEPS,
+              f"{label}: executor launches a step {r['launches_per_step']}, "
+              f"not the predicted {r['predicted_launches']}")
+        check(not r["library_launches"],
+              f"{label}: library kernels on the trainer's path "
+              f"{r['library_launches']}")
+    check({r["kind"] for r in runs.values()} == {"inner", "groups"},
+          f"fsdp: the grids shard {[r['kind'] for r in runs.values()]}, "
+          f"not both kinds of dim")
+    t = time.perf_counter()
+    growth, ms, covered = _decode_on_card(cfg, device)
+    check(covered, f"dry run decode: the device sleep did not cover the "
+          f"graph replays' enqueue ({ms} ms a replay)")
+    sec["decode"] = time.perf_counter() - t
+    t = time.perf_counter()
+    counts = _dry_counts()
+    sec["dryrun"] = time.perf_counter() - t
+    train_run = runs[FSDP_DP[0]]
+    dry = {"decode": dict(_dry_vs_card(counts["decode"], growth, ms),
+                          device_ms_covered=covered),
+           "train": dict(_dry_vs_card(
+               counts["train"], train_run["peak_growth_gb"] * 1e9,
+               train_run["profiled_step"]["device_busy_ms"]),
+               step_ms_wall=train_run["step_ms_median"],
+               plan_calls_card=train_run["predicted_launches"])}
+    emit("fsdp_dryrun", card=RECORD["device"]["nvidia_smi"], dryrun=dry,
+         runs={f"dp{k}": {kk: v for kk, v in r.items() if kk != "parts"}
+               for k, r in runs.items()})
+    for name, d in dry.items():
+        check(d["share"] <= DRYRUN_SHARE_MAX,
+              f"dry run {name}: roofline {max(d['compute_ms'], d['memory_ms'])}"
+              f" ms over the measured {d['measured_ms']} ms reads "
+              f"{d['share']}, past {DRYRUN_SHARE_MAX}: the count is wrong")
+        check(d["peak_rel_err"] <= DRYRUN_PEAK_REL_TOL,
+              f"dry run {name}: peak growth {d['dry_peak_growth_gb']} GB "
+              f"against the card's {d['card_peak_growth_gb']} GB, past "
+              f"{DRYRUN_PEAK_REL_TOL}")
+    p16 = RECORD.get("train_runs", {}).get("runs", {}).get("flat4")
+    emit("fsdp", card=RECORD["device"]["nvidia_smi"], arch=ARCH,
+         n_layers=cfg.n_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         steps=FSDP_STEPS, bars=dict(loss=TRAIN_LOSS_BAR,
+                                     grad_norm=TRAIN_GNORM_BAR,
+                                     share=DRYRUN_SHARE_MAX,
+                                     peak_rel=DRYRUN_PEAK_REL_TOL),
+         auto=dict(losses=auto["losses"], grad_norms=auto["grad_norms"],
+                   peak_gb=auto["peak_gb"]),
+         runs={f"dp{k}": v for k, v in runs.items()},
+         phase16_dp4_peak_gb=p16["peak_gb"] if p16 else None,
+         dryrun=dry, seconds_by_part=sec,
+         seconds=time.perf_counter() - t0)
+    by = {}
+    for ndp, r in runs.items():
+        s0 = r["step0_plans"]
+        by[f"dp{ndp}"] = dict(
+            launches=r["launches"], launches_per_step=s0["launches"],
+            **{k: s0[k] / s0["launches"] for k in
+               ("ms", "plain_ms", "bound_ms", "library_ms")})
+    return dict(by_mode=by, max_abs_err=max(
+        r["plan_max_abs_err"] for r in runs.values()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17",
+                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18",
                     help="comma-separated phases to run (default 1-6 and "
-                         "8-17; 7 profiles a decode step)")
+                         "8-18; 7 profiles a decode step)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -6554,7 +6990,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
     (max_err, launches, timing, coll, moe, prefill, hier, hybrid, serve,
-     api, train, rwkv) = (None,) * 12
+     api, train, rwkv, fsdp) = (None,) * 13
     if 2 in phases:
         phase_build()
     if 3 in phases:
@@ -6587,6 +7023,8 @@ def main(argv=None) -> int:
         train = phase_train(device)
     if 17 in phases:
         rwkv = phase_rwkv6(device)
+    if 18 in phases:
+        fsdp = phase_fsdp(device)
     kernels = []
     # the trainers (phases 16, 17): the executor's launches over the
     # explicit runs (2 x 4: 3 a leaf a step; flat DP 4: one), and its times
@@ -6594,7 +7032,8 @@ def main(argv=None) -> int:
     # by the modes' launches. Kept out of the decode paths' weighted mean:
     # a gradient leaf's launch is milliseconds
     train_paths = {}
-    for path, rec in ((TRAIN_PATH, train), (RWKV_TRAIN_PATH, rwkv)):
+    for path, rec in ((TRAIN_PATH, train), (RWKV_TRAIN_PATH, rwkv),
+                      (FSDP_PATH, fsdp)):
         if rec is None:
             continue
         tb = rec["by_mode"]
@@ -6606,7 +7045,7 @@ def main(argv=None) -> int:
             **{k: sum(v[k] * v["launches"] for v in tb.values()) / n_train
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
             per_mode=tb)
-    train_errs = [rec["max_abs_err"] for rec in (train, rwkv)
+    train_errs = [rec["max_abs_err"] for rec in (train, rwkv, fsdp)
                   if rec is not None]
     if timing is not None:
         # each main path's per-step launch mix at full occupancy (every

@@ -28,8 +28,21 @@ replicated ones taken from rank 0, the SSM state's rank shards joined
 along ``d_inner``. Every leaf is a new tensor, so the explicit tree can
 be freed (or keep being written by an abandoned step) without touching
 the result.
+
+The spec half of the reference module is here too: :class:`MeshAxes`,
+:func:`param_pspecs`, :func:`batch_pspec`, :func:`cache_pspecs`,
+:func:`apply_fsdp` and :func:`logical_rules`, as plain functions over
+axis names and sizes. A grid is anything with a ``shape`` dict of axis
+sizes (:class:`~repro_torch.mesh.NamedGrid`, or a ``jax`` mesh in the
+tests), and a spec is a tuple with one entry a dim — an axis name, a
+tuple of names, or ``None`` — the reference's ``PartitionSpec`` entries
+in the reference's order. The port's trainer reads the FSDP specs
+(``distributed/fsdp.py``), the dry run all of them.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
 
 import torch
 
@@ -39,7 +52,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.rwkv6 import STATE_NAMES
 
 __all__ = ["explicit_decode_supported", "explicit_decode_params",
-           "auto_decode_params", "auto_decode_cache", "SHARD_DIMS"]
+           "auto_decode_params", "auto_decode_cache", "SHARD_DIMS",
+           "MeshAxes", "param_pspecs", "batch_pspec", "cache_pspecs",
+           "apply_fsdp", "logical_rules", "spec_map"]
 
 #: per-layer leaf -> the axis (of the ``(groups, ...)`` leaf) split over
 #: TP; leaves not listed are replicated
@@ -180,3 +195,219 @@ def auto_decode_cache(cache: dict) -> dict:
 
     return {name: [auto(name, leaf) for leaf in leaves]
             for name, leaves in cache.items()}
+
+
+# ---------------------------------------------------------------------------
+# the sharding specs (reference ``distributed/sharding.py:36-228, :359-405``)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    data: tuple = ("data",)     # DP axes (("pod", "data") multi-pod)
+    model: str = "model"        # TP/EP axis
+
+
+def _div(n: int, grid, axis: str) -> bool:
+    return axis in grid.shape and n % grid.shape[axis] == 0
+
+
+def _attn_specs(cfg: ModelConfig, grid, ax: MeshAxes) -> dict:
+    m = ax.model
+    nh, nkv = padded_heads(cfg)
+    nh_ok, nkv_ok, hd_ok = (_div(nh, grid, m), _div(nkv, grid, m),
+                            _div(cfg.hd, grid, m))
+    # q/o shard heads if possible, else head_dim, else replicate
+    q = (None, None, m, None) if nh_ok else (
+        (None, None, None, m) if hd_ok else (None,) * 4)
+    o = (None, m, None, None) if nh_ok else (
+        (None, None, m, None) if hd_ok else (None,) * 4)
+    kv = (None, None, m, None) if nkv_ok else (None,) * 4
+    sp = {"wq": q, "wk": kv, "wv": kv, "wo": o}
+    if cfg.qk_norm:
+        sp["q_norm"] = (None, None)
+        sp["k_norm"] = (None, None)
+    return sp
+
+
+def _mlp_specs(cfg: ModelConfig, grid, ax: MeshAxes, d_ff: int) -> dict:
+    m = ax.model if _div(d_ff, grid, ax.model) else None
+    return {"w_gate": (None, None, m), "w_up": (None, None, m),
+            "w_down": (None, m, None)}
+
+
+def _moe_specs(cfg: ModelConfig, grid, ax: MeshAxes) -> dict:
+    m = ax.model
+    if _div(cfg.moe.num_experts, grid, m):
+        # expert parallelism: experts sharded across the model axis
+        return {"router": (None, None, None), "w_gate": (None, m, None, None),
+                "w_up": (None, m, None, None),
+                "w_down": (None, m, None, None)}
+    # TP inside each expert (fewer experts than the axis)
+    f = cfg.moe.d_ff_expert or cfg.d_ff
+    fm = m if _div(f, grid, m) else None
+    return {"router": (None, None, None), "w_gate": (None, None, None, fm),
+            "w_up": (None, None, None, fm), "w_down": (None, None, fm, None)}
+
+
+def _rwkv_specs(cfg: ModelConfig, grid, ax: MeshAxes) -> dict:
+    m = ax.model if _div(cfg.d_model, grid, ax.model) else None
+    fm = ax.model if _div(cfg.d_ff, grid, ax.model) else None
+    hm = ax.model if _div(cfg.d_model // 64, grid, ax.model) else None
+    rep1 = (None, None)
+    return {
+        "wr": (None, None, m), "wk": (None, None, m), "wv": (None, None, m),
+        "wg": (None, None, m), "wo": (None, m, None),
+        "w_base": (None, hm, None), "u": (None, hm, None),
+        "w_lora_a": (None, None, None), "w_lora_b": (None, None, None),
+        "mix_r": rep1, "mix_k": rep1, "mix_v": rep1, "mix_w": rep1,
+        "mix_g": rep1, "mix_ck": rep1, "mix_cr": rep1,
+        "ck": (None, None, fm), "cv": (None, fm, None), "cr": (None, None, m),
+        "ln1": rep1, "ln2": rep1,
+    }
+
+
+def _ssm_specs(cfg: ModelConfig, grid, ax: MeshAxes) -> dict:
+    m = ax.model if _div(cfg.d_model, grid, ax.model) else None
+    return {"w_in": (None, None, m), "w_bcdt": (None, m, None),
+            "w_dt": (None, None, m), "a_log": (None, m, None),
+            "d_skip": (None, m), "w_out": (None, m, None)}
+
+
+def param_pspecs(cfg: ModelConfig, grid, ax: MeshAxes = MeshAxes()) -> dict:
+    """Spec tree matching ``init_params``' structure; layer leaves keep
+    their leading ``groups`` dim unsharded."""
+    m = ax.model
+    vocab_m = m if _div(cfg.vocab, grid, m) else None
+    if cfg.family == "rwkv6":
+        layer = _rwkv_specs(cfg, grid, ax)
+    else:
+        layer = {"ln_attn": (None, None), "ln_mlp": (None, None),
+                 "attn": _attn_specs(cfg, grid, ax)}
+        if cfg.family == "moe":
+            layer["moe"] = _moe_specs(cfg, grid, ax)
+        else:
+            layer["mlp"] = _mlp_specs(cfg, grid, ax, cfg.d_ff)
+        if cfg.family == "hybrid":
+            layer["ssm"] = _ssm_specs(cfg, grid, ax)
+    per = cfg.local_global_period if cfg.local_global_period > 1 else 1
+    specs = {"embed": (vocab_m, None), "ln_f": (None,),
+             "layers": [layer for _ in range(per)]}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = (None, vocab_m)
+    return specs
+
+
+def _data_axes(grid, ax: MeshAxes):
+    daxes = tuple(a for a in ax.data if a in grid.shape)
+    dp = 1
+    for a in daxes:
+        dp *= grid.shape[a]
+    return daxes, dp, (daxes if len(daxes) > 1
+                       else (daxes[0] if daxes else None))
+
+
+def batch_pspec(cfg: ModelConfig, grid, ax: MeshAxes, *, global_batch: int,
+                embedded: bool = False) -> tuple:
+    """DP over the data axes when the batch divides; the batch-1
+    long-context cell shards the sequence instead."""
+    _, dp, d = _data_axes(grid, ax)
+    if global_batch % max(dp, 1) == 0 and global_batch >= dp:
+        return (d, None, None) if embedded else (d, None)
+    return (None, d, None) if embedded else (None, d)
+
+
+def cache_pspecs(cfg: ModelConfig, grid, ax: MeshAxes, *, batch: int,
+                 kv_lens: Optional[list] = None) -> dict:
+    """Decode-cache specs, KV ``(groups, batch, n_kv, kv_len, hd)``: the
+    batch on the data axes and ``kv_len`` on ``model`` when the batch
+    divides; at batch 1 ``kv_len`` takes the axes greedily while its
+    length divides. rwkv6's state shards its heads on ``model``."""
+    from repro_torch.models import transformer as tf
+
+    daxes, dp, d = _data_axes(grid, ax)
+    batch_ok = batch % max(dp, 1) == 0 and batch >= dp
+    m = ax.model
+    if cfg.family == "rwkv6":
+        hspec = m if _div(cfg.d_model // 64, grid, m) else None
+        b = d if batch_ok else None
+        return {"wkv": (None, b, hspec, None, None),
+                "shift_t": (None, b, None), "shift_c": (None, b, None)}
+    wins = tf.layer_windows(cfg)
+    kv_lens = [0 for _ in wins] if kv_lens is None else kv_lens
+
+    def kvspec(kv_len):
+        seq_m = m if (kv_len == 0 or _div(kv_len, grid, m)) else None
+        if batch_ok:
+            return (None, d, None, seq_m, None)
+        seq_axes, prod = [], 1
+        for a in daxes + (m,):
+            if kv_len == 0 or kv_len % (prod * grid.shape[a]) == 0:
+                seq_axes.append(a)
+                prod *= grid.shape[a]
+        # one axis is its name, as a PartitionSpec entry reads
+        seq = (tuple(seq_axes) if len(seq_axes) > 1
+               else (seq_axes[0] if seq_axes else None))
+        return (None, None, None, seq, None)
+
+    cache = {"k": [kvspec(n) for n in kv_lens],
+             "v": [kvspec(n) for n in kv_lens]}
+    if cfg.family == "hybrid":
+        dm = m if _div(cfg.d_model, grid, m) else None
+        cache["ssm"] = [(None, d if batch_ok else None, dm, None)
+                        for _ in wins]
+    return cache
+
+
+def spec_map(fn, specs, *rest):
+    """``fn(spec, *leaves)`` over a spec tree (dicts and lists, a tuple a
+    leaf) and trees of its structure."""
+    if isinstance(specs, dict):
+        return {k: spec_map(fn, v, *(r[k] for r in rest))
+                for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [spec_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(specs)]
+    return fn(specs, *rest)
+
+
+#: leaves under this many elements keep their spec (reference ``:376``)
+FSDP_MIN_ELEMENTS = 1 << 16
+
+
+def apply_fsdp(specs, shapes, grid, ax: MeshAxes = MeshAxes(), *,
+               fsdp_axis: str = "data") -> Any:
+    """ZeRO-3/FSDP: every leaf of at least :data:`FSDP_MIN_ELEMENTS`
+    elements is sharded over ``fsdp_axis`` too, on its first
+    still-unsharded dim that the axis divides. ``shapes``: a tree of the
+    specs' structure whose leaves have a ``shape`` (tensors on the
+    ``meta`` device will do)."""
+    if fsdp_axis not in grid.shape:
+        return specs
+    n = grid.shape[fsdp_axis]
+
+    def one(sp, leaf):
+        shape = tuple(leaf.shape)
+        numel = 1
+        for dim in shape:
+            numel *= dim
+        if numel < FSDP_MIN_ELEMENTS:
+            return sp
+        entries = list(sp) + [None] * (len(shape) - len(sp))
+        for i, (e, dim) in enumerate(zip(entries, shape)):
+            if e is None and dim % n == 0 and dim >= n:
+                entries[i] = fsdp_axis
+                return tuple(entries)
+        return sp
+
+    return spec_map(one, specs, shapes)
+
+
+def logical_rules(cfg: ModelConfig) -> dict:
+    """Human-readable summary of the mapping."""
+    return {
+        "batch": "pod×data (seq on data when batch=1)",
+        "attn heads": "model (kv replicated when n_kv < axis)",
+        "mlp ff": "model",
+        "experts": "model when divisible else TP-in-expert",
+        "vocab": "model when divisible else replicated",
+        "layers": "scan dim, never sharded",
+    }

@@ -41,6 +41,7 @@ import torch
 from repro_torch import tree as tree_lib
 from repro_torch.core import comm as comm_lib
 from repro_torch.core import selector as sel
+from repro_torch.distributed import fsdp as fsdp_lib
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.moe_parallel import ep_capacity, moe_layer_ep
 from repro_torch.mesh import DeviceLike, RankAxis, resolve_device
@@ -105,12 +106,13 @@ def compile_decode_plans(cfg: ModelConfig, comm, *, batch_local: int,
     a ``batch_local * s`` row bucket to ``layer_allreduce`` (and its
     capacity to ``moe_alltoall``), so a prefill micro-step replays the
     same plan families at a larger bucket; ``logits_allgather`` needs
-    none (fused prefill makes no logits). They serve the explicit step
-    alone, so a family without one (rwkv6, served on auto) raises."""
-    if cfg.family not in tf.EXPLICIT_FAMILIES:
-        raise NotImplementedError(
-            f"decode plans serve the explicit step, which covers the "
-            f"dense, MoE and hybrid families; {cfg.family!r} stays on auto")
+    none (fused prefill makes no logits).
+
+    Every decoding family gets its plans, as in the reference: the rwkv6
+    family's ``layer_allreduce`` and ``logits_allgather`` are compiled
+    (and exported with a replica's plan set) though nothing replays them,
+    since its explicit step stays refused
+    (:func:`~repro_torch.distributed.sharding.explicit_decode_supported`)."""
     buckets = tuple(buckets) if buckets else slot_buckets(batch_local)
     rows = seq_bucket_rows(batch_local, buckets, seq_buckets)
     plans = {"layer_allreduce": comm.plan_for(
@@ -556,19 +558,55 @@ def capture_sched_step(step, params, cache, *, batch: int,
     return CapturedSchedStep(graph, inputs, logits, captured)
 
 
-def make_prefill_step(cfg: ModelConfig, *, device: DeviceLike = None):
+def make_prefill_step(cfg: ModelConfig, *, device: DeviceLike = None,
+                      dp_axes=(), fsdp: bool = False,
+                      dp_comms: Optional[dict] = None, fsdp_ranks=None,
+                      backend: Optional[str] = None):
     """Full-sequence forward returning last-position logits, ``step(
     params, tokens) -> (b, vocab)`` f32: the port of the reference's
     ``make_prefill_step`` in auto mode (cache filling is engine-side).
     ``tokens`` are ``(b, s)`` ints, or ``(b, s, d)`` float frames for a
     frontend arch; ``params`` lie on ``device`` (default: the CUDA card,
-    raising where there is none)."""
+    raising where there is none).
+
+    ``fsdp=True`` with DP axes ``dp_axes`` (``RankAxis`` es, outermost
+    first; the reference's ``fsdp=True`` over its data axes): the batch
+    splits over the DP ranks, each holding its shards
+    (``distributed/fsdp.py``; ``step.fsdp.layout.shard(params)`` makes the
+    held tree the step then takes), each group gathered by plans just
+    before it runs (``dp_comms``: built on the device's backend when
+    omitted),
+    and the logits come back in rank order. Without DP axes ``fsdp``
+    changes nothing. ``fsdp_ranks`` (the dry run): the DP ranks this
+    device runs. ``backend`` names the attention core (``blocks.
+    attention``)."""
     device = resolve_device(device)
+    if fsdp and dp_axes:
+        dp_axes = tuple(dp_axes)
+        ndp = 1
+        for a in dp_axes:
+            ndp *= a.n
+        comms = dp_comms if dp_comms is not None else \
+            make_dp_communicators(dp_axes)
+        fs = fsdp_lib.FsdpPass(
+            cfg, fsdp_lib.FsdpLayout(
+                cfg, fsdp_lib.dp_grid(dp_axes),
+                local=None if fsdp_ranks is None else len(fsdp_ranks)),
+            fsdp_lib.FsdpComms(comms), ndp=ndp, ranks=fsdp_ranks,
+            backend=backend)
+
+        def sharded_step(held, tokens):
+            tokens = torch.as_tensor(tokens, device=device)
+            with torch.inference_mode():
+                return fs.prefill_logits(held, tokens)
+
+        sharded_step.fsdp = fs
+        return sharded_step
 
     def step(params, tokens):
         tokens = torch.as_tensor(tokens, device=device)
         with torch.inference_mode():
-            hidden = tf.forward(params, cfg, tokens)
+            hidden = tf.forward(params, cfg, tokens, backend=backend)
             return tf.logits_fn(params, cfg, hidden[:, -1:])[:, 0]
 
     return step
@@ -645,6 +683,14 @@ class TrainStep:
         self.remat_policy = remat_policy
         self.dp_wire_dtype = dp_wire_dtype
         self.device = device
+        #: the FSDP ranks' passes (``distributed/fsdp.py``), or None
+        self.fsdp = None
+
+    def shard(self, params: dict) -> dict:
+        """The tree the step takes: under FSDP each leaf's held shards
+        (:meth:`FsdpLayout.shard`), else ``params`` as they are."""
+        return params if self.fsdp is None else self.fsdp.layout.shard(
+            params)
 
     def __call__(self, params, opt_state, batch):
         """One step. The params and the optimizer state are updated in
@@ -688,6 +734,8 @@ class TrainStep:
         step's, or the explicit step's reduced and averaged copy (rank
         0's, the one that feeds the update)."""
         batch = self.batch(batch)
+        if self.fsdp is not None:
+            return self.fsdp.grads(params, batch)
         if self.mode == "auto":
             loss, grads = self.value_and_grad(params, batch)
             return loss, tree_lib.unflatten(params, grads)
@@ -777,7 +825,8 @@ def make_train_step(cfg: ModelConfig, dp_axes, opt_cfg, *,
                     remat_policy: str = "none",
                     dp_backend: Optional[str] = None, dp_wire_dtype=None,
                     fsdp: bool = False, dp_comms: Optional[dict] = None,
-                    device: DeviceLike = None) -> TrainStep:
+                    device: DeviceLike = None,
+                    fsdp_ranks=None) -> TrainStep:
     """The train step over the DP axes ``dp_axes`` (``RankAxis`` es,
     outermost first; they name the device, else ``device``, default the
     CUDA card). ``mode`` is ``"auto"`` or ``"explicit"`` (see
@@ -791,14 +840,18 @@ def make_train_step(cfg: ModelConfig, dp_axes, opt_cfg, *,
     before its plan (the bf16 wire). The step updates the params and the
     optimizer state in place, as the reference's donates them.
 
-    ``fsdp=True`` raises: the reference's FSDP is a GSPMD sharding spec
-    over chips, and the port's trainer holds each DP rank's model
-    whole."""
-    if fsdp:
-        raise ValueError(
-            "fsdp=True has no counterpart in the port: the reference's FSDP "
-            "is a GSPMD sharding of the params over chips, and on one card "
-            "the trainer's params are whole (each DP rank reads them)")
+    ``fsdp=True`` (``distributed/fsdp.py``): in explicit mode each DP
+    rank holds only its shard of every leaf and of the AdamW state (the
+    reference's ``apply_fsdp`` specs over the innermost DP axis), a
+    group's weights are gathered by plans just before it runs, and the
+    gradients reach the shards by reduce-scatter plans (all-reduce for a
+    group one rank owns, and for a leaf held whole). The step then takes
+    and updates held trees: :meth:`TrainStep.shard` makes one from
+    reference-layout params, ``optimizer.adamw_init`` its state. Auto mode
+    has no ranks, so there ``fsdp=True`` computes as the auto step
+    without it, as the reference's auto step computes the same math.
+    ``fsdp_ranks`` (the dry run): the DP ranks this device runs, each
+    holding one shard, in place of all of them."""
     if mode not in ("auto", "explicit"):
         raise ValueError(f"mode must be 'auto' or 'explicit', got {mode!r}")
     dp_axes = tuple(dp_axes)
@@ -822,7 +875,15 @@ def make_train_step(cfg: ModelConfig, dp_axes, opt_cfg, *,
     if mode == "explicit":
         comms = dp_comms if dp_comms is not None else \
             make_dp_communicators(dp_axes, backend=dp_backend)
-    return TrainStep(cfg, opt_cfg, mode=mode, ndp=ndp if mode == "explicit"
+    step = TrainStep(cfg, opt_cfg, mode=mode, ndp=ndp if mode == "explicit"
                      else 1, comms=comms, global_batch=global_batch,
                      seq_len=seq_len, remat_policy=remat_policy,
                      dp_wire_dtype=dp_wire_dtype, device=dev)
+    if fsdp and mode == "explicit" and dp_axes:
+        step.fsdp = fsdp_lib.FsdpPass(
+            cfg, fsdp_lib.FsdpLayout(
+                cfg, fsdp_lib.dp_grid(dp_axes),
+                local=None if fsdp_ranks is None else len(fsdp_ranks)),
+            fsdp_lib.FsdpComms(comms), ndp=ndp, ranks=fsdp_ranks,
+            dp_wire_dtype=dp_wire_dtype)
+    return step

@@ -28,7 +28,8 @@ from typing import List, Tuple, Union
 
 import torch
 
-__all__ = ["RankAxis", "RankGrid", "group_ranks", "resolve_device"]
+__all__ = ["RankAxis", "RankGrid", "NamedGrid", "group_ranks",
+           "resolve_device"]
 
 DeviceLike = Union[None, str, torch.device]
 
@@ -135,3 +136,64 @@ class RankGrid:
     def node_groups(self) -> List[List[int]]:
         groups, stride = self.node_view
         return group_ranks(groups, self.nodes, stride)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedGrid:
+    """A named rank grid — axis names and sizes, outermost first, and no
+    device (the port's stand-in for a ``jax.sharding`` mesh where only
+    its shape is read: the sharding specs, the dry run). Rank ids are
+    row-major over the axes, as a mesh's device ids are.
+
+    ``shape`` is the ``{name: size}`` dict the spec functions read
+    (``jax.sharding.Mesh.shape``'s meaning); :meth:`rank_axes` puts the
+    axes on a device as :class:`RankAxis` es."""
+
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.axis_sizes) or len(
+                set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"axis names {self.axis_names} and sizes "
+                             f"{self.axis_sizes}: one distinct name a size")
+        if any(n < 1 for n in self.axis_sizes):
+            raise ValueError(f"axis sizes must be >= 1: {self.axis_sizes}")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        out = 1
+        for n in self.axis_sizes:
+            out *= n
+        return out
+
+    def rank_axes(self, device: DeviceLike = None) -> Tuple[RankAxis, ...]:
+        """The axes as :class:`RankAxis` es on ``device``."""
+        return tuple(RankAxis(a, n, device)
+                     for a, n in zip(self.axis_names, self.axis_sizes))
+
+    def group_ranks(self, names) -> List[List[int]]:
+        """The rank groups of a collective over the axes ``names``: one
+        group for each index of the other axes, its members ordered
+        row-major over ``names``."""
+        names = set(names)
+        stride, strides = 1, {}
+        for a, n in reversed(list(zip(self.axis_names, self.axis_sizes))):
+            strides[a] = stride
+            stride *= n
+        inner = [a for a in self.axis_names if a in names]
+        outer = [a for a in self.axis_names if a not in names]
+
+        def offsets(axes):
+            out = [0]
+            for a in axes:
+                out = [o + i * strides[a] for o in out
+                       for i in range(self.shape[a])]
+            return out
+
+        members = offsets(inner)
+        return [[base + m for m in members] for base in offsets(outer)]

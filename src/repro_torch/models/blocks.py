@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.kernels import comm_utils
 from repro_torch.kernels.flash_attention import flash_attention
@@ -71,8 +72,13 @@ def _rope_tables(head_dim: int, theta: float, n_pos: int):
 @functools.lru_cache(maxsize=None)
 def _rope_device_tables(head_dim: int, theta: float, n_pos: int,
                         device: torch.device):
-    cos, sin = _rope_tables(head_dim, theta, n_pos)
-    return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+    # a device constant, made outside any dispatch mode: a step run on
+    # fake tensors (the dry run) reads a real table, and so neither
+    # counts one as its own allocation nor leaves a fake one in this cache
+    with _disable_current_modes():
+        cos, sin = _rope_tables(head_dim, theta, n_pos)
+        return (torch.from_numpy(cos).to(device),
+                torch.from_numpy(sin).to(device))
 
 
 def _rope_table_size(max_pos: int) -> int:

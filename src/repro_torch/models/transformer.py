@@ -37,7 +37,8 @@ from repro_torch.models.blocks import rms_norm
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["init_params", "init_cache", "decode_step", "prefill_step",
-           "forward", "loss_fn", "embed_tokens", "logits_fn",
+           "forward", "loss_fn", "embed_tokens", "logits_fn", "rope_tables",
+           "run_group", "head_loss", "cross_entropy",
            "layer_windows", "n_groups", "position_limit", "REMAT_POLICIES"]
 
 FAMILIES = ("dense", "moe", "hybrid", "rwkv6", "encoder")
@@ -79,14 +80,16 @@ def position_limit(cfg: ModelConfig, max_kv: int) -> int:
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 *, device: DeviceLike = None, seed: int = 0) -> dict:
-    """Seeded random weights on ``device`` (default: the CUDA card).
+    """Seeded random weights on ``device`` (default: the CUDA card;
+    ``"meta"`` gives the shapes and types alone).
     The numbers differ from the reference's ``jax.random`` ones; to hold
     the two against each other, carry the reference's weights across
     with :func:`repro_torch.interop.params_from_jax`."""
     _check_family(cfg)
     device = resolve_device(device)
     gen = generator
-    if gen is None:
+    if gen is None and device.type != "meta":
+        # on ``meta`` (shapes alone: the dry run) nothing is drawn
         gen = torch.Generator(device=device).manual_seed(seed)
     d, dt = cfg.d_model, cfg.tdtype
     lead = (n_groups(cfg),)
@@ -232,23 +235,13 @@ def forward(params, cfg: ModelConfig, tokens, *,
         raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
                          f"got {remat_policy!r}")
     x = embed_tokens(params, cfg, tokens)
-    s = x.shape[1]
-    if s > cfg.max_seq:
-        raise ValueError(f"forward(): {s} positions > max_pos {cfg.max_seq}")
-    # positions made on the device and read there: a host tensor's copy
-    # would wait for the stream, once a forward; rwkv6 has no positions
-    cos = sin = None
-    if cfg.family != "rwkv6":
-        cos, sin = blocks.rope(torch.arange(s, device=x.device), cfg.hd,
-                               cfg.rope_theta, x.device, max_pos=s,
-                               on_device=True)
+    cos, sin = rope_tables(cfg, x.shape[1], x.device)
     wins = layer_windows(cfg)
     slots = [_per_group(params["layers"][i]) for i in range(len(wins))]
 
     def body(x, g):
-        for i, win in enumerate(wins):
-            x = _run_layer(slots[i][g], x, cfg, win, cos, sin, backend)
-        return x
+        return run_group([slot[g] for slot in slots], x, cfg, cos, sin,
+                         backend)
 
     for g in range(n_groups(cfg)):
         if remat_policy == "full":
@@ -257,6 +250,29 @@ def forward(params, cfg: ModelConfig, tokens, *,
         else:
             x = body(x, g)
     return rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def rope_tables(cfg: ModelConfig, s: int, device):
+    """(cos, sin) of positions ``0..s-1`` for :func:`run_group`, made on
+    the device and read there (a host tensor's copy would wait for the
+    stream, once a forward); ``(None, None)`` for rwkv6, which has no
+    positions."""
+    if s > cfg.max_seq:
+        raise ValueError(f"forward(): {s} positions > max_pos {cfg.max_seq}")
+    if cfg.family == "rwkv6":
+        return None, None
+    return blocks.rope(torch.arange(s, device=device), cfg.hd,
+                       cfg.rope_theta, device, max_pos=s, on_device=True)
+
+
+def run_group(slots: list, x, cfg: ModelConfig, cos, sin,
+              backend: Optional[str] = None):
+    """One layer group of :func:`forward` on ``x`` (b, s, d): ``slots``
+    holds the group's layer params, one dict a period slot (no
+    ``groups`` axis)."""
+    for p, win in zip(slots, layer_windows(cfg)):
+        x = _run_layer(p, x, cfg, win, cos, sin, backend)
+    return x
 
 
 def _per_group(tree) -> list:
@@ -293,8 +309,21 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat_policy: str = "none",
     that need a gradient."""
     hidden = forward(params, cfg, batch["tokens"], backend=attn_backend,
                      remat_policy=remat_policy)
-    logits = logits_fn(params, cfg, hidden)
-    labels = batch["labels"].to(logits.device).long()
+    return cross_entropy(logits_fn(params, cfg, hidden), batch["labels"])
+
+
+def head_loss(params, cfg: ModelConfig, x, labels):
+    """:func:`loss_fn` from the last group's output ``x`` on: the final
+    norm, the logits and the cross entropy (``params`` needs ``ln_f`` and
+    the logits' weight alone)."""
+    hidden = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return cross_entropy(logits_fn(params, cfg, hidden), labels)
+
+
+def cross_entropy(logits, labels):
+    """Mean next-token cross entropy of f32 ``logits``, as
+    :func:`loss_fn` computes it."""
+    labels = labels.to(logits.device).long()
     m = logits.detach().amax(dim=-1, keepdim=True)
     logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
     gold = logits.gather(-1, labels[..., None])[..., 0]

@@ -323,7 +323,9 @@ def test_engine_explicit_falls_back_to_auto(ref_engine):
     with pytest.warns(UserWarning, match="falling back to auto"):
         eng = _engine(np_params, tp=2, mode="explicit")
     assert eng.mode == "auto" and eng.requested_mode == "explicit"
-    assert eng.health["fallbacks"] == 1 and not eng.decode_plans
+    # the plans are compiled, as the reference's are; nothing replays them
+    assert eng.health["fallbacks"] == 1
+    assert set(eng.decode_plans) == {"layer_allreduce", "logits_allgather"}
     assert eng.plan_report()["degraded"]
     logits = eng.prefill(_prompts(eng.cfg.vocab))
     assert np.array_equal(eng.decode(logits, num_tokens=STEPS), want)
@@ -456,12 +458,28 @@ def test_train_launcher_runs_rwkv6(capsys):
 # ---------------------------------------------------------------------------
 # what stays refused, as in the reference
 # ---------------------------------------------------------------------------
+def _plan_keys(plans):
+    """Each plan family's collective, axis size, per-rank columns, dtype
+    and bucket ladder (the reference's and the port's spell the same)."""
+    return {name: (p.collective, p.n, p.cols, str(p.dtype),
+                   tuple(p.buckets)) for name, p in plans.items()}
+
+
 def test_explicit_paths_and_fused_prefill_refuse_rwkv6(weights):
-    _, cfg = _cfgs()
+    """The decode plans are compiled as the reference compiles them (the
+    same families, shapes and buckets); the explicit step, the
+    rank-stacked cache and fused prefill stay refused."""
+    rcfg, cfg = _cfgs()
     port = weights[2]
     comm = Communicator("model", n=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="decode plans"):
-        step_mod.compile_decode_plans(cfg, comm, batch_local=2, tp=2)
+    got = step_mod.compile_decode_plans(cfg, comm, batch_local=2, tp=2,
+                                        seq_buckets=(4,))
+    from repro.core import comm as ref_comm
+    want = ref_step.compile_decode_plans(
+        rcfg, ref_comm.Communicator("model", n=2), batch_local=2, tp=2,
+        seq_buckets=(4,))
+    assert set(got) == {"layer_allreduce", "logits_allgather"}
+    assert _plan_keys(got) == _plan_keys(want)
     axis = RankAxis("model", 2, "cpu")
     ok, why = shd.explicit_decode_supported(cfg, 2)
     assert not ok and "rwkv6" in why
@@ -482,6 +500,41 @@ def test_explicit_paths_and_fused_prefill_refuse_rwkv6(weights):
     with pytest.raises(ValueError, match="token by token"):
         step_mod.make_prefill_sched_step(cfg, RankAxis("model", 1, "cpu"),
                                          batch=2, seq=4, max_kv=8)
+
+
+def test_router_serves_rwkv6_as_the_reference(tmp_path):
+    """``build_replicas`` over rwkv6-reduced (2 replicas x TP 2, auto,
+    one exported plan set): the reference router's greedy streams on the
+    same trace and weights, nothing dropped, no warning."""
+    from repro.serve.router import build_replicas as ref_build_replicas
+    from repro_torch.serve.router import build_replicas
+    rcfg, cfg = _cfgs()
+    ref = ref_build_replicas(rcfg, RefServeConfig(batch=BATCH, max_kv=MAX_KV),
+                             n_replicas=2, tp=2, plan_dir=tmp_path / "ref",
+                             mode="auto")
+    ref_loadgen.run_load(ref, ref_loadgen.synth_trace(
+        ref_loadgen.TrafficConfig(**TRAFFIC), rcfg.vocab),
+        step_s=TRAFFIC["step_s"])
+    mesh = Mesh(np.asarray(jax.devices()[:2]).reshape(1, 2),
+                ("data", "model"))
+    np_params = jax.tree.map(np.asarray, ref_step.init_sharded(
+        rcfg, mesh, ref_shd.MeshAxes(), jax.random.key(0))[0])
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        router = build_replicas(
+            cfg, ServeConfig(batch=BATCH, max_kv=MAX_KV), n_replicas=2,
+            tp=2, plan_dir=tmp_path / "port",
+            params=params_from_jax(np_params, cfg, device="cpu"),
+            mode="auto", device="cpu")
+    trace = _trace(cfg.vocab)
+    loadgen.run_load(router, trace, step_s=TRAFFIC["step_s"])
+    assert all(r.eng.mode == "auto" and r.eng.decode_plans
+               and not r.eng.plan_report()["degraded"]
+               for r in router.replicas)
+    assert router.metrics()["dropped"] == 0
+    assert dict(router.streams) == {rid: list(map(int, s))
+                                    for rid, s in ref.streams.items()}
+    assert router.routed == dict(ref.routed)
 
 
 def test_position_limit_is_the_context_only():

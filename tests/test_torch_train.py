@@ -242,10 +242,9 @@ def test_executor_release_drops_only_the_scratch(monkeypatch):
 
 
 def test_train_step_refuses_fsdp_and_unknown_modes():
+    """An unknown mode raises (``fsdp=True`` no longer does: its tests are
+    in ``tests/test_torch_fsdp.py``)."""
     cfg = configs.reduced(configs.get_config("qwen3-1.7b"))
-    with pytest.raises(ValueError, match="fsdp"):
-        st.make_train_step(cfg, (), None, global_batch=2, seq_len=4,
-                           fsdp=True, device="cpu")
     with pytest.raises(ValueError, match="mode"):
         st.make_train_step(cfg, (), None, mode="pjit", global_batch=2,
                            seq_len=4, device="cpu")
