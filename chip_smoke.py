@@ -13,6 +13,7 @@
     python3 chip_smoke.py --phases 1,2,16 # build, then the trainer
     python3 chip_smoke.py --phases 1,2,17 # build, then rwkv6-7b
     python3 chip_smoke.py --phases 1,2,18 # build, then FSDP and the dry run
+    python3 chip_smoke.py --phases 1,2,19 # build, then channels and examples
 
 Phases, each printing one JSON line (any failure raises, exit != 0):
 
@@ -387,6 +388,38 @@ Phases, each printing one JSON line (any failure raises, exit != 0):
    enqueue; the train step's summed kernel time under the profiler),
    which must read at most 1.05 (one card has no NVLink: no collective
    term).
+19. the channels and the examples. (a) The channel layer's device side
+   (``csrc/channels.cuh`` through ``kernels/channels.py``): the
+   ``PortChannel`` put (TMA bulk copies issued by one thread a block)
+   and the ``FusedReduceChannel`` all-reduce, bit-equal to their plain
+   models (``core/channels.py``) at n in {2, 4, 8} x f32/bf16/int32 x
+   1 KiB, 64 KiB, 1 MiB and 16 MiB a rank (1 KiB and 1 MiB also one
+   element short: odd counts, unaligned ranks); their path, 16 launches
+   back to back alternating the two (counted from 0 just before, read
+   just after), each held; each captured once in a CUDA graph and
+   replayed 16 times on fresh inputs (f32, bf16), each replay held; µs a
+   launch at every n and size (bf16) beside the HBM bound (input read
+   once, output written once), one PyTorch call (``index_select`` into
+   ``out``; ``x.sum(0)`` expanded) and the plain model; and, reported
+   only, a bf16 8192^3 GEMM's µs on a second stream alone and beside a
+   stream of 16 MiB-a-rank puts through the PortChannel and through the
+   SM copy (``msccl::put``). (b) Every ``examples_torch/*.py`` in-process
+   through its ``main(argv)`` at the reference's sizes (train_llm's step
+   count cut): custom_collective, quickstart, communicator and
+   hierarchical with the executor kernel bit-equal to the plain
+   executor (communicator's reloaded plan bit-identical; hierarchical's
+   integer sum exact in 3 launches a replay); profile_plan's three
+   traced ring plans' event counts equal to the CPU capture's of the same
+   plans (its 1PA serving-surface trace's counts reported: the kernel
+   emits one put a peer, the plain executor one a fan-out round); serve_llm
+   at 32 tokens in explicit and auto, f32 tokens equal, each by CUDA
+   graph with its compiles flat across decode; prefix_serve (16
+   requests) warm and cold bit-identical to the sequential baseline with
+   prefix hits; train_llm (llama-100m, DP 2) 10 steps explicit and auto,
+   losses falling, explicit within phase 16's bars of auto and one plan
+   compile a gradient shape. Each example's executor and library
+   launches are printed; each must have launched a kernel. The phase
+   prints its seconds.
 
 The last lines are the card's nvidia-smi line, one ``{"kernels": [...]}``
 JSON object, and ``{"ok": true, "device": {...}}``. The whole record,
@@ -405,8 +438,12 @@ view on phase 11's hierarchical replays is an entry of its own
 (``dsl_executor_group_view``: the replays' times over their launches,
 each leaf's replay under ``per_shape``); flash
 attention's are the mean over the layers of one forward of each phase-10
-model, every shape's under ``per_shape``; the other kernels' per-shape
-times are in the phase lines.
+model, every shape's under ``per_shape``; the channel entry points'
+(phase 19, ``port_put`` and ``fused_reduce``, which replace no TPU
+kernel: ``replaces`` names the reference class they carry) at n = 4,
+16 MiB a rank, bf16, every timed shape under ``per_shape``, their
+``launches`` those of phase 19's back-to-back chain; the other kernels'
+per-shape times are in the phase lines.
 """
 from __future__ import annotations
 
@@ -780,6 +817,7 @@ def phase_build():
     build.flash_attention_library()
     build.allreduce_2ph_library()
     build.collective_matmul_library()
+    build.channels_library()
     ptxas = [ln.strip() for b in build.last_build.values()
              for ln in b["log"].splitlines() if "registers" in ln]
     # the bf16 products of the AllGather-matmul and of flash attention:
@@ -808,6 +846,7 @@ def phase_build():
         check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
               f"{lib} SASS: {ops} (want HGMMA and UTMALDG, no HMMA)")
     _check_1pa_build(libs["allreduce_1pa"], build)
+    _check_channels_build(libs["channels"], build)
 
 
 # the cluster 1PA's SASS: cluster barriers (UCGABAR_*), the multicast bulk
@@ -819,6 +858,22 @@ AR1PA_SASS = {"UCGABAR_ARV": r"UCGABAR_ARV", "UCGABAR_WAIT": r"UCGABAR_WAIT",
               "SYNCS.PHASECHK": r"SYNCS\.PHASECHK\S*",
               "ST.E.64": r"ST\.E\.64\S*", "ACQBULK": r"ACQBULK",
               "PREEXIT": r"PREEXIT"}
+
+
+def _check_channels_build(path, build):
+    """The channels library's PortChannel put is a TMA bulk copy: its
+    SASS holds the bulk copies (UBLKCP, shared <-> global) and their
+    mbarrier waits (SYNCS.PHASECHK)."""
+    text = subprocess.run(
+        [str(pathlib.Path(build.nvcc()).parent / "cuobjdump"), "-sass",
+         str(path)], capture_output=True, text=True, check=True,
+        timeout=300).stdout
+    ops = {op: len(re.findall(pat, text))
+           for op, pat in (("UBLKCP", r"UBLKCP\S*"),
+                           ("SYNCS.PHASECHK", r"SYNCS\.PHASECHK\S*"))}
+    emit("build_channels", sass=ops)
+    check(all(ops.values()), f"channels SASS: {ops} (want bulk copies "
+          f"and their mbarrier waits)")
 
 
 def _check_1pa_build(path, build):
@@ -6965,12 +7020,408 @@ def phase_fsdp(device):
         r["plan_max_abs_err"] for r in runs.values()))
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the channels and the examples
+# ---------------------------------------------------------------------------
+CH_SOURCE = "src/repro_torch/csrc/channels.cu"
+# the reference code each entry point carries to the card: its channel
+# classes, which reach no pallas_call of their own
+CH_REPLACES = {"port_put": "src/repro/core/channels.py:134",
+               "fused_reduce": "src/repro/core/channels.py:145"}
+CH_N = (2, 4, 8)
+CH_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+CH_SIZES = {"1KiB": 1 << 10, "64KiB": 64 << 10, "1MiB": 1 << 20,
+            "16MiB": 16 << 20}                   # bytes a rank
+CH_ODD = ("1KiB", "1MiB")                        # also at an odd count
+CH_CHAIN = 16            # back-to-back launches, alternating the two
+CH_REPLAYS = 16          # graph replays of each entry point
+CH_LINE = (4, "16MiB", torch.bfloat16)           # the kernels line's shape
+GEMM_DIM = 8192          # the report-only overlap GEMM (bf16, square)
+GEMM_ITERS = 8
+
+
+def _ch_cases():
+    """(n, dtype, label, count) of the grid: every size at its full count,
+    the CH_ODD sizes also one element short (an odd count)."""
+    out = []
+    for n in CH_N:
+        for dtype in CH_DTYPES:
+            esz = torch.empty((), dtype=dtype).element_size()
+            for label, nbytes in CH_SIZES.items():
+                out.append((n, dtype, label, nbytes // esz))
+                if label in CH_ODD:
+                    out.append((n, dtype, label + "-1", nbytes // esz - 1))
+    return out
+
+
+def _ch_ops():
+    from repro_torch.kernels import channels as ch
+    return {"port_put": (ch.port_put, ch.port_put_plain),
+            "fused_reduce": (ch.fused_reduce, ch.fused_reduce_plain)}
+
+
+def _ch_held(name, got, x, errs, what):
+    """``got`` bit-equal to the plain model on ``x``."""
+    want = _ch_ops()[name][1](x)
+    err = _max_abs_err(got, want)
+    errs[name] = max(errs.get(name, 0.0), err)
+    check(torch.equal(got, want), f"{name} {what}: |kernel - plain| {err}")
+
+
+def _ch_grid(gen, device, errs):
+    """Both entry points bit-equal to their plain models over the grid."""
+    cases = 0
+    for n, dtype, label, count in _ch_cases():
+        x = _rand((n, 1, count), dtype, gen, device)
+        for name, (kern, _) in _ch_ops().items():
+            _ch_held(name, kern(x), x, errs,
+                     f"n={n} {dtype} {label} ({count} elements)")
+            cases += 1
+        del x
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _ch_chain(gen, device, errs):
+    """The channels' path: CH_CHAIN launches back to back, alternating the
+    two entry points on one input each (an odd bf16 count and f32), each
+    result held after the chain. The launch counts are set to 0 just
+    before and read just after."""
+    from repro_torch.kernels import comm_utils
+    xs = {"port_put": _rand((4, 3, 1021), torch.bfloat16, gen, device),
+          "fused_reduce": _rand((4, 5, 2047), torch.float32, gen, device)}
+    for name, (kern, _) in _ch_ops().items():   # workspaces, off the count
+        kern(xs[name])
+    torch.cuda.synchronize()
+    comm_utils.LAUNCHES.clear()                 # just before the path
+    outs = []
+    for i in range(CH_CHAIN):
+        name = list(xs)[i % 2]
+        outs.append((name, _ch_ops()[name][0](xs[name])))
+    torch.cuda.synchronize()
+    launches = {k: comm_utils.LAUNCHES[k] for k in xs}   # read just after
+    for i, (name, got) in enumerate(outs):
+        _ch_held(name, got, xs[name], errs, f"chain launch {i}")
+    for k, c in launches.items():
+        check(c == CH_CHAIN // 2, f"{k}: {c} launches in the chain")
+    return launches
+
+
+def _ch_graph(gen, device, errs):
+    """Each entry point captured once in a CUDA graph and replayed
+    CH_REPLAYS times on fresh inputs, each replay bit-equal to the plain
+    model (the epoch lives on the card)."""
+    out = {}
+    for name, (kern, _) in _ch_ops().items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = _rand((8, 7, 1031), dtype, gen, device)
+            kern(x)                               # the workspace, eagerly
+            torch.cuda.synchronize()
+            g = torch.cuda.CUDAGraph()
+            s = torch.cuda.Stream()
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s), torch.cuda.graph(g, stream=s):
+                y = kern(x)
+            torch.cuda.current_stream().wait_stream(s)
+            for i in range(CH_REPLAYS):
+                x.copy_(_rand(x.shape, dtype, gen, device))
+                g.replay()
+                torch.cuda.synchronize()
+                _ch_held(name, y, x, errs, f"{dtype} graph replay {i}")
+            out[f"{name}/{str(dtype).replace('torch.', '')}"] = CH_REPLAYS
+            del g
+    return out
+
+
+def _ch_time(gen, device):
+    """µs a launch of both entry points at n in CH_N x every size (bf16),
+    beside the HBM bound (each rank's input read once, its output written
+    once), one PyTorch call (``index_select`` into ``out``: the put;
+    ``x.sum(0)`` expanded: the reduce) and the plain model."""
+    from repro_torch.kernels import comm_utils
+    rows = []
+    for n in CH_N:
+        for label, nbytes in CH_SIZES.items():
+            x = _rand((n, 1, nbytes // 2), torch.bfloat16, gen, device)
+            src = (torch.arange(n, device=device) - 1) % n
+            out = torch.empty_like(x)
+            libs = {"port_put": lambda x=x, out=out, src=src:
+                    torch.index_select(x, 0, src, out=out),
+                    "fused_reduce": lambda x=x:
+                    x.sum(0, keepdim=True).expand_as(x).contiguous()}
+            total = 2 * x.numel() * x.element_size()
+            iters = max(5, min(200, int(2e9 // total)))
+            for name, (kern, plain) in _ch_ops().items():
+                k_ms, k_cov = device_ms(lambda: kern(x), iters)
+                p_ms, p_cov = device_ms(lambda: plain(x), max(3, iters // 8))
+                l_ms, l_cov = device_ms(libs[name], iters)
+                rows.append(dict(
+                    kernel=name, n=n, size=label, dtype="bfloat16",
+                    rank_bytes=nbytes, ms=k_ms, plain_ms=p_ms,
+                    library_ms=l_ms, bound_ms=total / HBM_BYTES_PER_S * 1e3,
+                    bytes=total, blocks_per_rank=comm_utils.workspace(
+                        name, x).blocks,
+                    sleep_covered=dict(kernel=k_cov, plain=p_cov,
+                                       library=l_cov)))
+            del x, out
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _ch_overlap(gen, device):
+    """Report only: the µs of a bf16 GEMM_DIM^3 matmul on a second stream,
+    alone, then beside a stream of 16 MiB-a-rank puts (n = 4) through the
+    PortChannel (TMA: one thread a block copies) and through the SM copy
+    (``msccl::put``: every thread of the block copies), enough puts to
+    cover the GEMMs. Which put leaves the SMs to the GEMM shows in its
+    time; nothing is gated."""
+    from repro_torch.kernels import channels as ch
+    a = torch.randn(GEMM_DIM, GEMM_DIM, generator=gen, device=device).to(
+        torch.bfloat16)
+    b = torch.randn(GEMM_DIM, GEMM_DIM, generator=gen, device=device).to(
+        torch.bfloat16)
+    x = _rand((4, 1, (16 << 20) // 2), torch.bfloat16, gen, device)
+    side = torch.cuda.Stream()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+    def gemms():
+        with torch.cuda.stream(side):
+            ev[0].record(side)
+            for _ in range(GEMM_ITERS):
+                a @ b
+            ev[1].record(side)
+
+    def run(put=None, count=0):
+        torch.cuda.synchronize()
+        if put is not None:
+            ev[2].record()
+            for _ in range(count):
+                put()
+            ev[3].record()
+        gemms()
+        torch.cuda.synchronize()
+        return (ev[0].elapsed_time(ev[1]) / GEMM_ITERS * 1e3,
+                ev[2].elapsed_time(ev[3]) / max(count, 1) * 1e3
+                if put is not None else None)
+
+    run()                                           # warm-up
+    alone, _ = run()
+    res = dict(gemm_alone_us=alone, gemm_dim=GEMM_DIM, rank_bytes=16 << 20,
+               n=4)
+    for label, tma in (("port_put", True), ("sm_put", False)):
+        put = functools.partial(ch.port_put, x, tma=tma)
+        put()
+        put_us = device_ms(put, 10)[0] * 1e3
+        count = int(alone * GEMM_ITERS / put_us) + 2
+        gemm_us, during_us = run(put, count)
+        res[label] = dict(put_alone_us=put_us, puts=count,
+                          gemm_beside_us=gemm_us,
+                          put_beside_us=during_us)
+    del a, b, x
+    torch.cuda.empty_cache()
+    return res
+
+
+def _ch_phase(gen, device):
+    """Phase 19 (a): the two channel entry points."""
+    errs = {}
+    cases = _ch_grid(gen, device, errs)
+    launches = _ch_chain(gen, device, errs)
+    graphs = _ch_graph(gen, device, errs)
+    timing = _ch_time(gen, device)
+    overlap = _ch_overlap(gen, device)
+    return dict(cases=cases, launches=launches, graph_replays=graphs,
+                max_abs_err=errs, timing=timing, overlap=overlap)
+
+
+EXAMPLES = ROOT / "examples_torch"
+# each example's argv on the card: the reference's sizes, models and
+# defaults (serve_llm's 32 tokens, prefix_serve's 16 requests), only
+# train_llm's 300 steps cut to 10 to fit the phase's time
+EXAMPLE_ARGS = {
+    "custom_collective": [], "quickstart": [], "communicator": [],
+    "profile_plan": [], "hierarchical": [],
+    "serve_llm": ["--tokens", "32"],
+    "prefix_serve": [],
+    "train_llm": ["--steps", "10"],
+}
+
+
+def _example(name):
+    """``examples_torch/<name>.py`` as a module (the folder is no
+    package); importing it runs nothing."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(name, argv):
+    """One example's ``main(argv)`` with every launch count set to 0 just
+    before and read just after: (its result, executor launches (its
+    traced instantiation's among them), library kernel launches,
+    seconds)."""
+    from repro_torch.core.executor import CudaExecutor
+    from repro_torch.kernels import comm_utils
+    main = _example(name).main
+    torch.cuda.synchronize()
+    CudaExecutor.launches = 0                    # just before the example
+    CudaExecutor.traced_launches = 0
+    comm_utils.LAUNCHES.clear()
+    t = time.perf_counter()
+    res = main(list(argv))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = (CudaExecutor.launches            # read just after
+                + CudaExecutor.traced_launches,
+                {k: v for k, v in comm_utils.LAUNCHES.items() if v})
+    return res, launches[0], launches[1], secs
+
+
+def _examples_phase(device):
+    """Phase 19 (b): every example in-process through its ``main(argv)``
+    on the card, each gated, each launching at least one kernel."""
+    rec, counts = {}, {}
+
+    def run(name, *extra):
+        res, ex, lib, secs = _run_example(name, EXAMPLE_ARGS[name]
+                                          + list(extra))
+        label = name + "".join(extra).replace("--mode", "/")
+        counts[label] = dict(executor=ex, library=lib, seconds=secs)
+        return res
+
+    got = {}
+    for name in ("custom_collective", "quickstart", "communicator",
+                 "hierarchical"):
+        got[name] = res = run(name)
+        same = res["cuda_equals_torch"]
+        ok = all(same.values()) if isinstance(same, dict) else same is True
+        check(ok, f"example {name}: the executor kernel against the plain "
+                  f"executor: {same}")
+        rec[name] = dict(cuda_equals_torch=same)
+    comm = got["communicator"]
+    check(comm["json_bit_identical"],
+          "communicator: the reloaded plan does not replay bit-identical")
+    rec["communicator"].update(fitted=comm["fitted"],
+                               fitted_algo=comm["fitted_algo"])
+    hier = got["hierarchical"]
+    check(hier["launches_per_replay"] == 3 and hier["exact"]
+          and hier["json_bit_identical"],
+          f"hierarchical: {hier['launches_per_replay']} launches a replay "
+          f"(want 3), integer sum exact {hier['exact']}, reloaded "
+          f"{hier['json_bit_identical']}")
+    rec["hierarchical"].update(
+        launches_per_replay=hier["launches_per_replay"],
+        phases=hier["phases"])
+
+    card = run("profile_plan")
+    cpu = _example("profile_plan").main(["--device", "cpu"])
+    check(card["events"] == cpu["events"],
+          f"profile_plan: traced events {card['events']} on the card, "
+          f"{cpu['events']} on the CPU")
+    # reported, not gated: the serving surface's 1PA plan, whose kernel
+    # issues one put a peer and one wait a flag slot (as the reference's
+    # Pallas executor) where the plain executor lowers a fan-out round to
+    # one emission (as the reference's XLA executor); the ring plans
+    # above emit alike on both
+    rec["profile_plan"] = dict(
+        events=card["events"], span_us=card["span_us"], link=card["link"],
+        tuned_algo=card["tuned_algo"],
+        serve_trace_events=dict(card=card["serve_trace_events"],
+                                cpu=cpu["serve_trace_events"],
+                                algo=card["serve_trace_algo"]))
+
+    serve = {m: run("serve_llm", "--mode", m) for m in ("explicit", "auto")}
+    for m, r in serve.items():
+        check(r["mode"] == m and r["graph"] and
+              r["compiles_after_decode"] == r["compiles_before_decode"],
+              f"serve_llm {m}: ran {r['mode']}, graph {r['graph']}, "
+              f"compiles {r['compiles_before_decode']} -> "
+              f"{r['compiles_after_decode']}")
+    check(serve["explicit"]["tokens"] == serve["auto"]["tokens"],
+          "serve_llm: f32 tokens differ between explicit and auto")
+    rec["serve_llm"] = {m: dict(decode_ms_per_token=r["decode_ms_per_token"],
+                                prefill_ms=r["prefill_ms"],
+                                graph_launches=r["graph_launches"],
+                                hits=r["hits"],
+                                continuation=r["continuation"])
+                        for m, r in serve.items()}
+
+    ps = run("prefix_serve")
+    check(ps["warm"]["bit_identical"] and ps["cold"]["bit_identical"]
+          and ps["warm"]["prefix_hits"] > 0,
+          f"prefix_serve: warm {ps['warm']['bit_identical']}, cold "
+          f"{ps['cold']['bit_identical']}, hits {ps['warm']['prefix_hits']}")
+    rec["prefix_serve"] = dict(
+        micro_steps=dict(warm=ps["warm"]["micro_steps"],
+                         cold=ps["cold"]["micro_steps"]),
+        prefix_hits=ps["warm"]["prefix_hits"],
+        prefix_misses=ps["warm"]["prefix_misses"],
+        prefill_bucket_steps=ps["warm"]["prefill_bucket_steps"])
+
+    tr = {m: run("train_llm", "--mode", m) for m in ("explicit", "auto")}
+    for m, r in tr.items():
+        check(len(r["losses"]) == 10 and r["losses"][-1] < r["losses"][0],
+              f"train_llm {m}: losses {r['losses']} do not fall")
+    gaps = _train_gaps(tr["explicit"], tr["auto"])
+    check(gaps["loss"] <= TRAIN_LOSS_BAR
+          and gaps["grad_norm"] <= TRAIN_GNORM_BAR,
+          f"train_llm: explicit against auto {gaps}")
+    stats = tr["explicit"]["plan_stats"]
+    check(all(v["compiles"] == v["plans"] for v in stats.values()),
+          f"train_llm: a gradient shape compiled twice: {stats}")
+    rec["train_llm"] = dict(
+        gaps=gaps, plan_stats=stats,
+        losses={m: r["losses"] for m, r in tr.items()},
+        mean_step_s={m: r["mean_step_s"] for m, r in tr.items()})
+    # every example launched a kernel on the card (its auto-mode runs are
+    # the comparison: they serve and train without plans)
+    for name in EXAMPLE_ARGS:
+        n = sum(c["executor"] + sum(c["library"].values())
+                for label, c in counts.items() if label.split("/")[0] == name)
+        check(n > 0, f"example {name} launched no kernel on the card")
+    return dict(examples=rec, launches=counts)
+
+
+def phase_channels_examples(device, gen):
+    """Phase 19: (a) the channel entry points, (b) the examples."""
+    t = time.perf_counter()
+    ch = _ch_phase(gen, device)
+    ch_s = time.perf_counter() - t
+    ex = _examples_phase(device)
+    emit("channels_examples", seconds=time.perf_counter() - t,
+         channels_seconds=ch_s, channels=ch, examples=ex["examples"],
+         example_launches=ex["launches"])
+    return ch
+
+
+def _ch_kernels(chan) -> list:
+    """The kernels line's entries of the two channel entry points: their
+    times at CH_LINE, every timed shape under ``per_shape``."""
+    n, size, dtype = CH_LINE
+    out = []
+    for name in ("port_put", "fused_reduce"):
+        rows = [r for r in chan["timing"] if r["kernel"] == name]
+        row = next(r for r in rows if (r["n"], r["size"]) == (n, size))
+        out.append(dict(
+            name=name, route="cuda", source=CH_SOURCE,
+            replaces=CH_REPLACES[name], launches=chan["launches"][name],
+            max_abs_err=chan["max_abs_err"][name],
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "library_ms")},
+            bound_by="bytes", n=n, size=size,
+            dtype=str(dtype).replace("torch.", ""), per_shape=rows))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18",
+                    default="1,2,3,4,5,6,8,9,10,11,12,13,14,15,16,17,18,19",
                     help="comma-separated phases to run (default 1-6 and "
-                         "8-18; 7 profiles a decode step)")
+                         "8-19; 7 profiles a decode step)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -6990,7 +7441,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
     (max_err, launches, timing, coll, moe, prefill, hier, hybrid, serve,
-     api, train, rwkv, fsdp) = (None,) * 13
+     api, train, rwkv, fsdp, chan) = (None,) * 14
     if 2 in phases:
         phase_build()
     if 3 in phases:
@@ -7025,6 +7476,8 @@ def main(argv=None) -> int:
         rwkv = phase_rwkv6(device)
     if 18 in phases:
         fsdp = phase_fsdp(device)
+    if 19 in phases:
+        chan = phase_channels_examples(device, gen)
     kernels = []
     # the trainers (phases 16, 17): the executor's launches over the
     # explicit runs (2 x 4: 3 a leaf a step; flat DP 4: one), and its times
@@ -7273,6 +7726,8 @@ def main(argv=None) -> int:
             **{k: mean[k] for k in keys},
             bound_by="operations" if mean["ops_ms"] >= mean["bytes_ms"]
             else "bytes", per_shape=mt))
+    if chan is not None:
+        kernels += _ch_kernels(chan)
     emit("total", seconds=time.perf_counter() - t0)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -25,7 +25,7 @@ __all__ = ["CSRC", "KernelBuildError", "KernelLaunchError", "build_dir",
            "allreduce_1pa_library", "allpairs_2pa_library",
            "allgather_ring_library", "alltoall_library",
            "flash_attention_library", "allreduce_2ph_library",
-           "collective_matmul_library", "last_build"]
+           "collective_matmul_library", "channels_library", "last_build"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _REPO = pathlib.Path(__file__).resolve().parents[3]
@@ -254,3 +254,16 @@ def collective_matmul_library() -> ctypes.CDLL:
     return _collective_library("collective_matmul", {
         "ag_matmul_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _U, _P]})
+
+
+def channels_library() -> ctypes.CDLL:
+    """``csrc/channels.cu``: ``port_put_launch(x, out, slots, stride,
+    flags, epochs, dtype, n, count, blocks, tma, threads, stream)``
+    and ``fused_reduce_launch(x, out, slots, stride, flags, epochs, dtype,
+    n, count, blocks, threads, stream)`` (epochs on the card, one word a
+    block)."""
+    return _collective_library("channels", {
+        "port_put_launch": [_P, _P, _P, _LL, _P, _P, _I, _I, _LL, _I, _I, _I,
+                            _P],
+        "fused_reduce_launch": [_P, _P, _P, _LL, _P, _P, _I, _I, _LL, _I,
+                                _I, _P]})

@@ -1,7 +1,8 @@
 """Seeded virtual-clock load generator for the serving layer — the
 port's copy of the reference's trace code (``benchmarks/loadgen.py``):
-:class:`TrafficConfig`, :func:`synth_trace`, :func:`run_load` and
-:func:`sequential_baseline` (numpy only).
+:class:`TrafficConfig`, :func:`synth_trace`, :func:`run_load`,
+:func:`sequential_baseline` and the full load test
+:func:`run_serve_load` (with its smoke model, :func:`_serve_model`).
 
 Synthetic traffic — Poisson arrivals, Zipf prompt lengths, uniform
 generation budgets, all from one ``np.random.default_rng(seed)`` — on
@@ -13,15 +14,17 @@ draws), the same routing, the same batching.
 from __future__ import annotations
 
 import dataclasses
+import tempfile
+import time
 from collections import deque
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from repro_torch.serve.scheduler import Request
 
 __all__ = ["TrafficConfig", "synth_trace", "run_load",
-           "sequential_baseline"]
+           "sequential_baseline", "run_serve_load"]
 
 
 @dataclasses.dataclass
@@ -114,3 +117,116 @@ def sequential_baseline(sched, trace: List[Request], *,
         sched.submit(dataclasses.replace(req, arrival_s=0.0))
         sched.run_until_drained(step_s=step_s)
     return {req.rid: list(sched.streams[req.rid]) for req in trace}
+
+
+def _serve_model():
+    """The smoke model: qwen3-1.7b shrunk by ``configs.reduced`` —
+    d_model=128, vocab=512 (divisible by tp=2/4 for the vocab-sharded
+    logits plan), float32, 2 layers."""
+    from repro_torch import configs
+    return configs.reduced(configs.get_config("qwen3-1.7b"))
+
+
+def run_serve_load(tcfg: Optional[TrafficConfig] = None, *,
+                   n_replicas: int = 2, tp: int = 2, batch: int = 4,
+                   mode: str = "explicit", prefill_chunk: int = 4,
+                   fused_prefill: bool = False,
+                   prefill_seq_buckets=None,
+                   prefix_cache_tokens=None, queue_limit=None,
+                   plan_dir=None, params: Optional[dict] = None,
+                   device=None) -> dict:
+    """The full load test: build ``n_replicas`` × ``tp`` replicas on
+    ``device`` (default: the CUDA card) from ONE exported plan-file set,
+    drive the seeded trace through the router, then verify every stream
+    bit-identical against the sequential single-request baseline (itself
+    a replica loaded from the same files). The baseline is always COLD —
+    no fused prefill, no prefix cache — so enabling either knob is
+    differentially tested against the plain token-by-token path.
+    ``params`` (the reference layout) defaults to ``init_params`` from
+    seed 0, as the reference's ``params_key=0``. Returns the reference's
+    summary dict."""
+    import torch
+
+    from repro_torch.mesh import resolve_device
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.router import build_replicas
+
+    tcfg = tcfg or TrafficConfig()
+    device = resolve_device(device)
+    cfg = _serve_model()
+    if params is None:
+        params = tf.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0),
+            device=device)
+    scfg = ServeConfig(batch=batch, max_kv=64, mode=mode,
+                       prefill_seq_buckets=prefill_seq_buckets)
+    plan_dir = plan_dir or tempfile.mkdtemp(prefix="repro_plan_set_")
+    trace = synth_trace(tcfg, cfg.vocab)
+
+    t0 = time.perf_counter()
+    router = build_replicas(cfg, scfg, n_replicas=n_replicas, tp=tp,
+                            plan_dir=plan_dir, params=params, mode=mode,
+                            prefill_chunk=prefill_chunk,
+                            fused_prefill=fused_prefill,
+                            prefix_cache_tokens=prefix_cache_tokens,
+                            queue_limit=queue_limit, device=device)
+    build_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    infos = run_load(router, trace, step_s=tcfg.step_s)
+    ticks = len(infos)
+    micro_steps = sum(i.micro_steps for i in infos)
+    load_s = time.perf_counter() - t0
+
+    m = router.metrics()
+    rep = router.plan_report()
+
+    # baseline replica: the same weights, the same exported plan files (a
+    # plan set with extra prefill buckets loads fine into a config that
+    # does not use them), cold path — token-by-token prefill, no prefix
+    # cache
+    base_scfg = ServeConfig(batch=batch, max_kv=64, mode=mode)
+    base = build_replicas(cfg, base_scfg, n_replicas=1, tp=tp,
+                          plan_dir=plan_dir, params=params, mode=mode,
+                          prefill_chunk=prefill_chunk, device=device)
+    base_streams = sequential_baseline(base.replicas[0], trace,
+                                       step_s=tcfg.step_s)
+    streams = router.streams
+    mismatched = [r.rid for r in trace
+                  if streams.get(r.rid) != base_streams[r.rid]]
+    base_m = base.metrics()
+
+    # plan-family hits per replica (explicit mode only): how many bucketed
+    # dispatches each replica's ONE loaded family served
+    plan_hits: List[dict] = []
+    for r in router.replicas:
+        fam = (r.eng.decode_plans or {}).get("layer_allreduce")
+        hits = getattr(fam, "hits", None)
+        plan_hits.append({int(k): int(v) for k, v in hits.items()}
+                         if hits else {})
+
+    return dict(
+        model=cfg.name, replicas=n_replicas, tp=tp, batch=batch,
+        mode=mode, modes=rep["modes"], degraded=rep["degraded"],
+        seed=tcfg.seed, requests=len(trace),
+        completed=m["completed"], dropped=m["dropped"],
+        bit_identical=not mismatched, mismatched=mismatched,
+        tokens=m["tokens"], ticks=ticks, micro_steps=micro_steps,
+        tokens_per_vs=m["tokens_per_vs"],
+        ttft_vs=m["ttft_vs"], wait_vs=m["wait_vs"],
+        bucket_steps=m["bucket_steps"], plan_hits=plan_hits,
+        health=rep["health"],
+        fused_prefill=fused_prefill,
+        rejected=m["rejected"],
+        prefix_hits=m["prefix_hits"], prefix_misses=m["prefix_misses"],
+        prefix_tokens_reused=m["prefix_tokens_reused"],
+        prefix_hit_rate=m["prefix_hit_rate"],
+        prefill_bucket_steps=[
+            r["scheduler"].get("prefill_bucket_steps", {})
+            for r in rep["replicas"]],
+        seq_tokens_per_vs=base_m["tokens_per_vs"],
+        batching_speedup=round(
+            m["tokens_per_vs"] / max(base_m["tokens_per_vs"], 1e-9), 3),
+        per_replica_completed=[p["completed"] for p in m["per_replica"]],
+        build_s=round(build_s, 3), load_s=round(load_s, 3))
