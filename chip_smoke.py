@@ -818,6 +818,7 @@ def phase_build():
     build.allreduce_2ph_library()
     build.collective_matmul_library()
     build.channels_library()
+    build.spans_library()
     ptxas = [ln.strip() for b in build.last_build.values()
              for ln in b["log"].splitlines() if "registers" in ln]
     # the bf16 products of the AllGather-matmul and of flash attention:
@@ -1124,7 +1125,8 @@ def _profile_graph(run, steps, want):
     under the profiler, after one call in its warm-up (a session's first
     records can go missing: in full runs the head of a session's first
     replay did). CUPTI drops a graph's records now and then, never adds
-    one (``scripts/profiler_records.py`` counts how often): profiles are
+    one (the benchmark's ``notes.executor_records_dropped`` counts how
+    often in every traced run of ``portbench/``): profiles are
     taken until one holds ``want`` executor kernels (at most
     PROFILE_TRIES) and the most any held is returned, so a graph with a
     launch too many or too few shows in every profile. Returns (kernels,

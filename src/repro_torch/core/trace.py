@@ -46,6 +46,11 @@ last_trace``, ``Engine.plan_report()["trace"]``), :func:`capture_plan`,
 executor call inside the block). Traces feed :func:`repro_torch.core.
 selector.fit_from_traces`, :func:`repro_torch.core.simulate.replay` /
 ``whatif`` and ``TuningTable.from_traces``.
+
+The serving loop's spans, counters and device marks (a tick's phases,
+the model step's KV gather and MoE layers, also inside a captured graph)
+are :mod:`repro_torch.core.spans`'s; that module reuses
+:func:`run_meta` for its exports.
 """
 from __future__ import annotations
 

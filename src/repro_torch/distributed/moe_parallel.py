@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import spans
 from repro_torch.models.blocks import top_k
 
 __all__ = ["moe_layer_ep", "ep_capacity"]
@@ -47,6 +48,12 @@ def moe_layer_ep(p, x, cfg, *, comm=None, plan=None):
     With ``plan=None`` the all_to_all goes through ``comm.all_to_all``
     (compile at first use, cache hits after). The capacity is lossless
     (:func:`ep_capacity`): every assignment gets a slot.
+
+    Under a tracer's step (:mod:`repro_torch.core.spans`) the routing is
+    marked ``moe.route`` (up to the dispatch, and the combine after the
+    inverse all_to_all), the expert products ``moe.experts``, and where
+    Python runs the step the expert rows computed and the choices a token
+    makes are counted.
     """
     if plan is None and comm is None:
         raise ValueError("moe_layer_ep needs plan= (a compiled all_to_all) "
@@ -60,7 +67,10 @@ def moe_layer_ep(p, x, cfg, *, comm=None, plan=None):
     dev = x.device
     ranks = torch.arange(ep, device=dev)[:, None]
     tokens = x.reshape(ep, n_tok, d)
+    spans.count("moe.expert_rows", e_total * ep * capacity)
+    spans.count("moe.choices", k)
 
+    spans.mark("moe.route")
     router = torch.matmul(tokens, p["router"]).float()       # (ep, T, E)
     weights, idx = top_k(router, k)                          # (ep, T, k)
     weights = torch.softmax(weights, dim=-1)
@@ -84,20 +94,24 @@ def moe_layer_ep(p, x, cfg, *, comm=None, plan=None):
         return plan(buf) if plan is not None else comm.all_to_all(buf)
 
     # ---- all_to_all: expert-major blocks -> owning ranks ----------------
+    spans.mark("moe.route")
     recv = a2a(dispatch)
     # recv[r]: from each of the ep senders, (e_local, capacity) rows for
     # rank r's experts; the products batch over (rank, local expert) so
     # the weights are read in place
     recv = recv.reshape(ep, ep, e_local, capacity, d).transpose(1, 2)
     recv = recv.reshape(ep, e_local, ep * capacity, d)
+    spans.mark("moe.experts")
     h = torch.matmul(recv, p["w_gate"])
     u = torch.matmul(recv, p["w_up"])
     act = F.silu(h.float()).to(x.dtype) * u
     out = torch.matmul(act, p["w_down"])              # (ep, e_l, ep*c, d)
+    spans.mark("moe.experts")
     out = out.reshape(ep, e_local, ep, capacity, d).transpose(1, 2)
 
     # ---- combine: inverse all_to_all + weighted sum in a fixed order ----
     back = a2a(out.reshape(ep, e_total * capacity, d))
+    spans.mark("moe.route")
     # each assignment's slot back in assignment order (token, choice):
     # contributions are gathered, not scattered, and summed over the k
     # choices in order — no atomics, the same bits on every run
@@ -107,4 +121,5 @@ def moe_layer_ep(p, x, cfg, *, comm=None, plan=None):
     y = contrib[:, :, 0]
     for j in range(1, k):
         y = y + contrib[:, :, j]
+    spans.mark("moe.route")
     return y.reshape(ep, b, s, d)

@@ -41,6 +41,7 @@ import torch
 from repro_torch import tree as tree_lib
 from repro_torch.core import comm as comm_lib
 from repro_torch.core import selector as sel
+from repro_torch.core import spans
 from repro_torch.distributed import fsdp as fsdp_lib
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.moe_parallel import ep_capacity, moe_layer_ep
@@ -302,6 +303,7 @@ def make_sched_step(cfg: ModelConfig, axis: RankAxis, *, batch: int,
                                 kv_quant=kv_quant)
 
     def step(params, cache, tokens, pos, active):
+        spans.mark("step.begin")
         return tf.decode_step(params, cfg, cache, tokens, pos, comms=comms,
                               active=active)
 
@@ -340,6 +342,7 @@ def make_prefill_sched_step(cfg: ModelConfig, axis: RankAxis, *, batch: int,
                                 kv_quant=kv_quant, seq_buckets=(seq,))
 
     def step(params, cache, tokens, pos, n_tok):
+        spans.mark("step.begin")
         return tf.prefill_step(params, cfg, cache, tokens, pos, n_tok,
                                comms=comms)
 

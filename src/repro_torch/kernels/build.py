@@ -25,7 +25,8 @@ __all__ = ["CSRC", "KernelBuildError", "KernelLaunchError", "build_dir",
            "allreduce_1pa_library", "allpairs_2pa_library",
            "allgather_ring_library", "alltoall_library",
            "flash_attention_library", "allreduce_2ph_library",
-           "collective_matmul_library", "channels_library", "last_build"]
+           "collective_matmul_library", "channels_library", "spans_library",
+           "last_build"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _REPO = pathlib.Path(__file__).resolve().parents[3]
@@ -267,3 +268,12 @@ def channels_library() -> ctypes.CDLL:
                             _P],
         "fused_reduce_launch": [_P, _P, _P, _LL, _P, _P, _I, _I, _LL, _I,
                                 _I, _P]})
+
+
+def spans_library() -> ctypes.CDLL:
+    """``csrc/spans.cu``: ``span_stamp_launch(ring, cursor, capacity, code,
+    stream)`` (one device mark) and ``span_graph_nodes(graph, out,
+    max_nodes, &count)`` (six words a node of a captured graph)."""
+    return _collective_library("spans", {
+        "span_stamp_launch": [_P, _P, _LL, _LL, _P],
+        "span_graph_nodes": [_P, _P, _I, ctypes.POINTER(ctypes.c_int)]})

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils._python_dispatch import _disable_current_modes
 
+from repro_torch.core import spans
 from repro_torch.kernels import comm_utils
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -497,8 +498,10 @@ def _decode_attn_tp_shard(p: Params, q, cache_k, cache_v, valid, cfg, *,
     own KV head of the replicated cache through a gather (with an int8
     cache, its scales gathered alongside), ``valid`` (b or 1, 1, s, kv)
     masks each query's keys, and the ``wo`` projection over the local
-    heads is a partial sum."""
+    heads is a partial sum. The gathers are the tracer's ``attn.kv_read``
+    (:mod:`repro_torch.core.spans`)."""
     tp, _, nh_l, _, hd = q.shape
+    spans.mark("attn.kv_read")
     hid = head_offset[:, None] + torch.arange(nh_l, device=q.device)
     ranks = torch.arange(tp, device=q.device)[:, None]
     # (tp, b, kv_heads, kv, hd) -> (tp, b, nh_local, kv, hd)
@@ -510,8 +513,10 @@ def _decode_attn_tp_shard(p: Params, q, cache_k, cache_v, valid, cfg, *,
         ks = k_scale[ranks, :, hid // g].transpose(1, 2).float()
         vs = v_scale[ranks, :, hid // g].transpose(1, 2).float()
         ks, vs = ks.transpose(-1, -2), vs.transpose(-1, -2)
+        spans.mark("attn.kv_read")
         logits = _bf16_dot(eq_k, q, k_sel) * ks
     else:
+        spans.mark("attn.kv_read")
         logits = torch.einsum(eq_k, q, k_sel).float()
     logits = torch.where(valid, logits * hd ** -0.5, _MASKED)
     if k_scale is not None:

@@ -42,6 +42,12 @@ different bucket may pick different library kernels for the same row
 on the card, so there a stream matches the sequential run up to
 rounding.
 
+Tracing: ``Scheduler(..., trace=spans.Tracer())`` records the loop's
+host spans (``serve.tick`` and the phases inside it), the model step's
+device marks and its counters (:mod:`repro_torch.core.spans`); a graph
+captured under a tracer holds one stamp node a mark. With ``trace=None``
+(the default) nothing is recorded and no span is entered.
+
 Virtual time: the scheduler never reads a wall clock. ``tick(now)``
 takes the caller's clock (the load generator charges each tick ``step_s
 * (1 + micro_steps)``), so traces replay exactly and the metrics are
@@ -63,6 +69,7 @@ but an injected fault) raise instead.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import warnings
 import weakref
@@ -79,6 +86,9 @@ from repro_torch.serve.engine import unrecoverable
 
 __all__ = ["Request", "Emission", "TickInfo", "Scheduler",
            "AsyncServeEngine"]
+
+#: the span entered without a tracer: nothing
+_NO_SPAN = contextlib.nullcontext()
 
 #: cache-leaf kinds the prefix cache snapshots (the attention tape; the
 #: recurrent SSM state is excluded, see Scheduler._seed_prefix)
@@ -190,11 +200,15 @@ class Scheduler:
     inactive row presents a position inside them (the device path
     cannot raise). On the card each tick replays the slot bucket's
     captured graph; on the CPU the step runs eagerly.
+
+    ``trace``: a :class:`~repro_torch.core.spans.Tracer` that records
+    the loop's spans, the step's marks and its counters, or ``None``.
     """
 
     def __init__(self, engine, *, max_slots: Optional[int] = None,
                  prefill_chunk: int = 4, fused_prefill: bool = False,
-                 queue_limit: Optional[int] = None, prefix_cache=None):
+                 queue_limit: Optional[int] = None, prefix_cache=None,
+                 trace=None):
         self.eng = engine
         scfg = engine.scfg
         self.max_slots = int(max_slots or scfg.batch)
@@ -273,6 +287,9 @@ class Scheduler:
         self._prefix = {"hits": 0, "misses": 0, "tokens_reused": 0,
                         "inserts": 0}
         self.graphs: Dict[int, step_mod.CapturedSchedStep] = {}
+        self.trace = trace
+        if trace is not None:
+            trace.bind(self.device)
         if self.device.type == "cuda":
             self._capture_graphs()
             for leaves in self.cache.values():
@@ -285,11 +302,18 @@ class Scheduler:
         graphs in one memory pool (the warm-ups run with every row
         inactive, so a live cache passes through them)."""
         pool = torch.cuda.graph_pool_handle()
-        for b in self._buckets:
-            self.graphs[b] = step_mod.capture_sched_step(
-                self._step_fn(b), self.eng.params,
-                step_mod.cache_rows(self.cache, b), batch=b,
-                device=self.device, pool=pool)
+        with (self.trace.capturing() if self.trace is not None
+              else _NO_SPAN):
+            for b in self._buckets:
+                self.graphs[b] = step_mod.capture_sched_step(
+                    self._step_fn(b), self.eng.params,
+                    step_mod.cache_rows(self.cache, b), batch=b,
+                    device=self.device, pool=pool)
+
+    def _span(self, name: str):
+        """The tracer's host span ``serve.<name>`` (no step's), or
+        nothing without a tracer."""
+        return _NO_SPAN if self.trace is None else self.trace.span(name)
 
     # -- clock (virtual; the caller owns it) -------------------------------
     @property
@@ -412,7 +436,7 @@ class Scheduler:
             raise e
         warnings.warn(f"explicit {what} failed ({e}); falling back to auto "
                       f"(the unsharded step) for the remainder of serving",
-                      stacklevel=3)
+                      stacklevel=4)
         self.eng.health["fallbacks"] += 1
         self.mode = "auto"
         self.graphs = {}
@@ -433,12 +457,23 @@ class Scheduler:
         device (a graph's static output, valid until its next replay).
         An explicit step that fails falls back (:meth:`_fallback`) and
         runs again on auto."""
+        if self.trace is None:
+            return self._guarded("scheduler step", self._run_step, b,
+                                 inputs, graph)
+        with self.trace.span("replay", b=b,
+                             rows=int(inputs[2].count_nonzero())):
+            return self._guarded("scheduler step", self._run_step, b,
+                                 inputs, graph)
+
+    def _guarded(self, what: str, run, *args):
+        """``run(*args)`` on the scheduler's own cache leaves; an explicit
+        step that fails falls back (:meth:`_fallback`) and runs again."""
         self._check_leaves()
         try:
-            return self._run_step(b, inputs, graph)
+            return run(*args)
         except Exception as e:
-            self._fallback(e, "scheduler step")
-        return self._run_step(b, inputs, graph)
+            self._fallback(e, what)
+        return run(*args)
 
     def _run_step(self, b, inputs, graph):
         graph = bool(self.graphs) if graph is None else graph
@@ -456,7 +491,8 @@ class Scheduler:
         ``pred(slot)`` selects the slots that advance, the rest (and the
         bucket's free rows) pass their cache rows through bit for bit.
         Returns (logits rows, bucket)."""
-        b, inputs, stepped = self.step_inputs(pred)
+        with self._span("inputs"):
+            b, inputs, stepped = self.step_inputs(pred)
         logits = self.run_step(b, inputs)
         for s in stepped:
             if s.consumed < len(s.req.prompt):
@@ -513,12 +549,13 @@ class Scheduler:
         card it launches the executor kernel at the ``b·S`` bucket). An
         explicit step that fails falls back (:meth:`_fallback`) and runs
         again on auto."""
-        self._check_leaves()
-        try:
-            return self._run_prefill(b, S, inputs)
-        except Exception as e:
-            self._fallback(e, "fused-prefill step")
-        self._run_prefill(b, S, inputs)
+        if self.trace is None:
+            return self._guarded("fused-prefill step", self._run_prefill, b,
+                                 S, inputs)
+        with self.trace.span("prefill", b=b, S=S,
+                             rows=int(inputs[:, S + 1].sum())):
+            return self._guarded("fused-prefill step", self._run_prefill, b,
+                                 S, inputs)
 
     def _run_prefill(self, b, S, inputs):
         x = inputs.to(self.device)
@@ -531,7 +568,8 @@ class Scheduler:
         """One fused prefill micro-step: every prefilling slot advances
         by its chunk; the others, and the bucket's free rows, pass their
         cache through bit for bit (``n_tok = 0``). No logits."""
-        b, S, inputs, chunks = self.prefill_inputs()
+        with self._span("inputs"):
+            b, S, inputs, chunks = self.prefill_inputs()
         self.run_prefill(b, S, inputs)
         for s, n in zip(self._slots, chunks):
             if n > 0:
@@ -547,18 +585,21 @@ class Scheduler:
         their keys ``fold_in(key(seed), emitted)`` — independent of slot,
         co-residents and tick, so sampled streams are schedule-invariant
         like greedy ones. Only the ``(b,)`` tokens come to the host."""
-        tok = torch.argmax(logits, dim=-1)
-        hot = [(i, s) for i, s in rows if s.req.temperature > 0]
-        if hot:
-            idx = torch.tensor([i for i, _ in hot], device=logits.device)
-            temps = torch.tensor([s.req.temperature for _, s in hot],
-                                 dtype=torch.float32, device=logits.device)
-            keys = [sampling.fold_in(sampling.key(s.req.seed), s.emitted)
-                    for _, s in hot]
-            drawn = sampling.categorical_rows(
-                keys, logits.index_select(0, idx) / temps[:, None])
-            tok = tok.index_copy(0, idx, drawn)
-        return tok.cpu().numpy()
+        with self._span("sample"):
+            tok = torch.argmax(logits, dim=-1)
+            hot = [(i, s) for i, s in rows if s.req.temperature > 0]
+            if hot:
+                idx = torch.tensor([i for i, _ in hot],
+                                   device=logits.device)
+                temps = torch.tensor([s.req.temperature for _, s in hot],
+                                     dtype=torch.float32,
+                                     device=logits.device)
+                keys = [sampling.fold_in(sampling.key(s.req.seed),
+                                         s.emitted) for _, s in hot]
+                drawn = sampling.categorical_rows(
+                    keys, logits.index_select(0, idx) / temps[:, None])
+                tok = tok.index_copy(0, idx, drawn)
+            return tok.cpu().numpy()
 
     # -- admission / release -----------------------------------------------
     def _rows(self, i: int, kinds=None):
@@ -617,19 +658,20 @@ class Scheduler:
 
     def _admit(self, now: float) -> int:
         admitted = 0
-        while (self._queue and len(self._slots) < self.max_slots
-               and self._queue[0].arrival_s <= now):
-            req = self._queue.popleft()
-            i = len(self._slots)
-            # zero the recycled row: attention is masked by position, but
-            # the SSM state must start from its init value
-            for _, _, _, row in self._rows(i):
-                row.zero_()
-            slot = _Slot(req, now)
-            self._slots.append(slot)
-            self.streams[req.rid] = []
-            self._seed_prefix(slot, i)
-            admitted += 1
+        with self._span("admit"):
+            while (self._queue and len(self._slots) < self.max_slots
+                   and self._queue[0].arrival_s <= now):
+                req = self._queue.popleft()
+                i = len(self._slots)
+                # zero the recycled row: attention is masked by position,
+                # but the SSM state must start from its init value
+                for _, _, _, row in self._rows(i):
+                    row.zero_()
+                slot = _Slot(req, now)
+                self._slots.append(slot)
+                self.streams[req.rid] = []
+                self._seed_prefix(slot, i)
+                admitted += 1
         return admitted
 
     def _finish(self, s: _Slot, now: float) -> None:
@@ -639,18 +681,20 @@ class Scheduler:
             prompt_len=int(len(s.req.prompt)))
 
     def _release(self, i: int) -> None:
-        if self.prefix_cache is not None:
-            self.prefix_cache.release(self._slots[i].pc_handle)
-            self._slots[i].pc_handle = None
-        last = len(self._slots) - 1
-        if i != last:
-            # compact: copy the last active slot's rows into the freed row
-            # in place (a permutation of rows, so every stream is
-            # unaffected)
-            for name, _, leaf, row in self._rows(i):
-                row.copy_(leaf.select(step_mod.batch_axis(name, leaf), last))
-            self._slots[i] = self._slots[last]
-        self._slots.pop()
+        with self._span("release"):
+            if self.prefix_cache is not None:
+                self.prefix_cache.release(self._slots[i].pc_handle)
+                self._slots[i].pc_handle = None
+            last = len(self._slots) - 1
+            if i != last:
+                # compact: copy the last active slot's rows into the freed
+                # row in place (a permutation of rows, so every stream is
+                # unaffected)
+                for name, _, leaf, row in self._rows(i):
+                    row.copy_(leaf.select(step_mod.batch_axis(name, leaf),
+                                          last))
+                self._slots[i] = self._slots[last]
+            self._slots.pop()
 
     # -- the tick ----------------------------------------------------------
     def tick(self, now: Optional[float] = None) -> TickInfo:
@@ -658,6 +702,10 @@ class Scheduler:
         ``now`` (default: the internal clock): admit, run the chunked
         prefill micro-steps, run the combined step, sample and stream,
         and recycle completed slots."""
+        with self._span("tick"):
+            return self._tick_once(now)
+
+    def _tick_once(self, now: Optional[float]) -> TickInfo:
         now = self._now if now is None else float(now)
         if now < self._now:
             raise ValueError(f"virtual clock moved backwards "
